@@ -1,0 +1,142 @@
+"""The fused plane-sweep cost volume: CUDA kernel wrapper and its plain version.
+
+`fused_cost_volume` computes `build_cost_volume(group_cor=True)` for one
+cascade stage, all source views in one launch of the hand-written kernel in
+csrc/warp_correlate.cu (which replaces the TPU kernel
+mvster_tpu/kernels/pallas_warp.py::_warp_kernel and the view fusion of
+fused_cost_volume_geom).  A CPU tensor takes the plain PyTorch version,
+`fused_cost_volume_plain`; a CUDA tensor launches the kernel or raises.
+
+`fused_cost_volume.launches` counts kernel launches (`launch` adds one
+per launch), so a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mvster_tpu_torch.core.geometry import plane_sweep_rt
+from mvster_tpu_torch.kernels.cost_volume import plain_cost_volume
+
+# (D, G) pairs the kernel is instantiated for: the dtu_default stage set
+SUPPORTED_DG = frozenset({(4, 4), (4, 8), (8, 4), (8, 8)})
+
+
+def fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
+                            depth_hypo, group_dim, attn_temp, attn_fuse_d):
+    """Plain PyTorch version of the kernel, on any device."""
+    return plain_cost_volume(
+        ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
+        group_cor=True, group_dim=group_dim, attn_temp=attn_temp,
+        attn_fuse_d=attn_fuse_d,
+    )
+
+
+def _check_tensors(ref_feat, **tensors):
+    for name, t in dict(ref_feat=ref_feat, **tensors).items():
+        if t.device != ref_feat.device:
+            raise ValueError(f"{name} is on {t.device}, ref_feat on {ref_feat.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+
+
+def _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim):
+    """Everything the kernel reads: device, dtype, contiguity and shapes."""
+    _check_tensors(ref_feat, src_feats=src_feats, depth_hypo=depth_hypo,
+                   rot=rot, trans=trans)
+    named = dict(ref_feat=ref_feat, src_feats=src_feats, depth_hypo=depth_hypo,
+                 rot=rot, trans=trans)
+    for name, t in named.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ref_feat.dim() != 4 or src_feats.dim() != 5 or depth_hypo.dim() != 4:
+        raise ValueError(
+            "expected ref_feat (B, H, W, C), src_feats (V, B, H, W, C), "
+            f"depth_hypo (B, D, H, W); got {tuple(ref_feat.shape)}, "
+            f"{tuple(src_feats.shape)}, {tuple(depth_hypo.shape)}"
+        )
+    b, h, w, c = ref_feat.shape
+    v = src_feats.shape[0]
+    d = depth_hypo.shape[1]
+    if tuple(src_feats.shape[1:]) != (b, h, w, c) or v < 1:
+        raise ValueError(f"src_feats {tuple(src_feats.shape)} does not match "
+                         f"ref_feat {tuple(ref_feat.shape)}")
+    if tuple(depth_hypo.shape) != (b, d, h, w):
+        raise ValueError(f"depth_hypo {tuple(depth_hypo.shape)} does not match "
+                         f"ref_feat {tuple(ref_feat.shape)}")
+    if tuple(rot.shape) != (v, b, 3, 3) or tuple(trans.shape) != (v, b, 3):
+        raise ValueError(f"rot {tuple(rot.shape)}, trans {tuple(trans.shape)} "
+                         f"do not match V={v}, B={b}")
+    if (d, group_dim) not in SUPPORTED_DG or c % group_dim:
+        raise ValueError(
+            f"the CUDA kernel supports (D, G) in {sorted(SUPPORTED_DG)} with C "
+            f"a multiple of G; got D={d}, G={group_dim}, C={c}"
+        )
+
+
+def plane_sweep_rts(ref_proj, src_projs):
+    """rot (V, B, 3, 3) and trans (V, B, 3) of every source view, contiguous.
+
+    One broadcast call for all views; core.geometry's products are
+    elementwise FMA chains, so each view's values are bit-identical to the
+    per-view plane_sweep_rt that the plain version computes.
+    """
+    rot, trans = plane_sweep_rt(src_projs, ref_proj)
+    return rot.contiguous(), trans.contiguous()
+
+
+def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
+           attn_fuse_d):
+    """Check the inputs, launch the kernel on the current stream and return
+    its (B, D, H, W, G) output; rot/trans as plane_sweep_rts gives them."""
+    from mvster_tpu_torch.kernels._build import load_library
+
+    _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim)
+    lib = load_library()
+    b, h, w, c = ref_feat.shape
+    v = src_feats.shape[0]
+    d = depth_hypo.shape[1]
+    out = torch.empty((b, d, h, w, group_dim), dtype=torch.float32,
+                      device=ref_feat.device)
+    with torch.cuda.device(ref_feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mvster_warp_correlate(
+            ref_feat.data_ptr(), src_feats.data_ptr(), depth_hypo.data_ptr(),
+            rot.data_ptr(), trans.data_ptr(), out.data_ptr(),
+            b, v, d, h, w, c, group_dim, int(bool(attn_fuse_d)),
+            float(attn_temp), math.sqrt(c), stream,
+        )
+    if rc != 0:
+        msg = lib.mvster_cuda_error_string(rc).decode()
+        raise RuntimeError(f"warp_correlate kernel launch failed: {msg} ({rc})")
+    fused_cost_volume.launches += 1
+    return out
+
+
+def fused_cost_volume(ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
+                      group_dim, attn_temp, attn_fuse_d):
+    """Attention-fused group-correlation volume (B, D, H, W, G).
+
+    ref_feat (B, H, W, C), src_feats (V, B, H, W, C), ref_proj (B, 4, 4),
+    src_projs (V, B, 4, 4), depth_hypo (B, D, H, W); all float32, and all
+    but the projections contiguous for the kernel.
+    """
+    if ref_feat.device.type == "cpu":
+        return fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
+                                       depth_hypo, group_dim, attn_temp,
+                                       attn_fuse_d)
+    if ref_feat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ref_feat.device}")
+    _check_tensors(ref_feat, ref_proj=ref_proj, src_projs=src_projs)
+    v, b = src_feats.shape[0], ref_feat.shape[0]
+    if tuple(ref_proj.shape) != (b, 4, 4) or tuple(src_projs.shape) != (v, b, 4, 4):
+        raise ValueError(f"projections {tuple(ref_proj.shape)}, "
+                         f"{tuple(src_projs.shape)} do not match B={b}, V={v}")
+    rot, trans = plane_sweep_rts(ref_proj, src_projs)
+    return launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim,
+                  attn_temp, attn_fuse_d)
+
+
+fused_cost_volume.launches = 0

@@ -1,0 +1,140 @@
+"""The port's cost volume against the JAX package, and its CUDA kernel against plain.
+
+CPU: kernels/cost_volume.build_cost_volume (plain PyTorch) against the JAX
+XLA formulation at atol 1e-5, and against the JAX Pallas kernel run in
+interpret mode at rtol 1e-4 / atol 1e-5 (that entry reassociates its
+coordinate arithmetic by up to ~1e-4 px, tests/test_pallas_warp.py).
+CUDA (marked `cuda`, skipped without a card): the hand-written kernel
+against its plain version on the card at atol/rtol 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import cuda_device, stage_inputs, t  # noqa: F401
+from mvster_tpu_torch.kernels import warp_correlate
+from mvster_tpu_torch.kernels.cost_volume import build_cost_volume
+
+
+def _port(inp, **kw):
+    return build_cost_volume(
+        t(inp["ref"]), t(inp["src"]), t(inp["ref_proj"]), t(inp["src_projs"]),
+        t(inp["hypo"]), **kw,
+    ).numpy()
+
+
+def _jax(inp, impl, **kw):
+    import jax.numpy as jnp
+
+    from mvster_tpu.kernels.cost_volume import build_cost_volume as jax_bcv
+
+    out, fallbacks = jax_bcv(
+        jnp.asarray(inp["ref"]), jnp.asarray(inp["src"]),
+        jnp.asarray(inp["ref_proj"]), jnp.asarray(inp["src_projs"]),
+        jnp.asarray(inp["hypo"]), impl=impl, with_fallbacks=True, **kw,
+    )
+    assert int(fallbacks) == 0, f"JAX {impl} path fell back to XLA"
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("group_cor", [True, False])
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+def test_plain_matches_jax_xla(attn_fuse_d, group_cor):
+    # unit-normal C=8 features, G=4, D=4, two source views at 64x64; the
+    # geometry is bit-exact with JAX, so only sum order differs (~1e-6)
+    inp = stage_inputs(0, 64, 64, 8, 4, nsrc=2)
+    kw = dict(group_cor=group_cor, group_dim=4, attn_temp=2.0,
+              attn_fuse_d=attn_fuse_d)
+    np.testing.assert_allclose(_port(inp, **kw), _jax(inp, "xla", **kw),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+def test_plain_matches_jax_pallas_interpret(attn_fuse_d):
+    """The Pallas K1 body itself (interpret mode), on the smooth textured
+    plane scene as features (C=3, G=3), as tests/test_pallas_warp.py runs it."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from helpers import plane_scene_sample
+    from mvster_tpu_torch.core.geometry import compose_projection
+
+    sample = plane_scene_sample(1)
+    imgs = sample["imgs"]  # (1, 3, 64, 64, 3)
+    comp = compose_projection(t(sample["proj_matrices"]["stage4"])).numpy()
+    rng = np.random.default_rng(1)
+    itv = np.arange(4, dtype=np.float32) / 3
+    hypo = (1.0 / (1 / 935.0 + (1 / 425.0 - 1 / 935.0) * itv)).astype(np.float32)
+    hypo = hypo[None, :, None, None] * rng.uniform(0.97, 1.03, (1, 4, 64, 64))
+    inp = dict(ref=imgs[:, 0], src=np.moveaxis(imgs[:, 1:], 1, 0),
+               ref_proj=comp[:, 0],
+               src_projs=np.ascontiguousarray(np.moveaxis(comp[:, 1:], 1, 0)),
+               hypo=hypo.astype(np.float32))
+    kw = dict(group_cor=True, group_dim=3, attn_temp=2.0, attn_fuse_d=attn_fuse_d)
+    with pltpu.force_tpu_interpret_mode():
+        got = _jax(inp, "pallas", **kw)
+    np.testing.assert_allclose(_port(inp, **kw), got, rtol=1e-4, atol=1e-5)
+
+
+def test_build_cost_volume_reports_no_fallbacks():
+    inp = stage_inputs(2, 64, 64, 8, 4, nsrc=1)
+    out, fallbacks = build_cost_volume(
+        t(inp["ref"]), [t(inp["src"][0])], t(inp["ref_proj"]),
+        [t(inp["src_projs"][0])], t(inp["hypo"]), group_dim=8,
+        with_fallbacks=True,
+    )
+    assert fallbacks == 0 and tuple(out.shape) == (1, 4, 64, 64, 8)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    inp = stage_inputs(3, 32, 32, 8, 8, nsrc=2)
+    before = warp_correlate.fused_cost_volume.launches
+    args = (t(inp["ref"]), t(inp["src"]), t(inp["ref_proj"]),
+            t(inp["src_projs"]), t(inp["hypo"]), 4, 2.0, True)
+    out = warp_correlate.fused_cost_volume(*args)
+    assert warp_correlate.fused_cost_volume.launches == before
+    np.testing.assert_array_equal(
+        out.numpy(), warp_correlate.fused_cost_volume_plain(*args).numpy()
+    )
+
+
+# DTU-mid stage shapes (H, W, C, D, G) of dtu_default at 512x640
+DTU_MID_STAGES = [(64, 80, 64, 8, 8), (128, 160, 32, 8, 8),
+                  (256, 320, 16, 4, 4), (512, 640, 8, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+@pytest.mark.parametrize("shape", DTU_MID_STAGES + [(48, 64, 8, 8, 4),
+                                                    (64, 64, 16, 4, 8)])
+def test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d):
+    # identical coordinates in both (see core/geometry.py), so only the
+    # sum order of the correlation and softmax differ
+    h, w, c, d, g = shape
+    inp = stage_inputs(4, h, w, c, d, nsrc=4)
+    args = [t(inp[k], cuda_device) for k in
+            ("ref", "src", "ref_proj", "src_projs", "hypo")]
+    before = warp_correlate.fused_cost_volume.launches
+    got = warp_correlate.fused_cost_volume(*args, g, 2.0, attn_fuse_d)
+    want = warp_correlate.fused_cost_volume_plain(*args, g, 2.0, attn_fuse_d)
+    torch.cuda.synchronize()
+    assert warp_correlate.fused_cost_volume.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    inp = stage_inputs(5, 32, 32, 8, 2, nsrc=1)
+    args = [t(inp[k], cuda_device) for k in
+            ("ref", "src", "ref_proj", "src_projs", "hypo")]
+    with pytest.raises(ValueError, match="supports"):
+        warp_correlate.fused_cost_volume(*args, 4, 2.0, True)  # D=2
+    inp = stage_inputs(5, 32, 32, 8, 4, nsrc=1)
+    args = [t(inp[k], cuda_device) for k in
+            ("ref", "src", "ref_proj", "src_projs", "hypo")]
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_correlate.fused_cost_volume(
+            args[0].transpose(1, 2), *args[1:], 4, 2.0, True)
+    with pytest.raises(ValueError, match="float32"):
+        warp_correlate.fused_cost_volume(args[0].double(), *args[1:], 4, 2.0, True)
