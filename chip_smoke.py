@@ -15,9 +15,28 @@ Phases, one line each, any failure exits non-zero:
      the stage comparator of tests/_torch_parity.py
   5. serve: tools.test.infer_views answers 3 reference views (eval_batch 1)
   6. times: steady-state forward and per-stage kernel vs plain, CUDA events
+  7. kernels K2/K3: the warp gather and its scatter-add backward against
+     their plain versions at the four DTU-mid stage shapes, batch 2, four
+     source views (K2 atol 1e-6, K3 rtol 1e-4 / atol 1e-5), and the
+     autograd Function's source gradient against autograd through the
+     plain gather
+  8. train: tools.train.main, one epoch of dtu_default() at 512x640, 5
+     views, batch 2 (17 steps) and a val pass, on a synthetic DTU tree
+     written at full size; finite losses, parameters moved, 16 K2 and 16 K3
+     launches per step, and the checkpoint serves one request through K1
+  9. card vs CPU: one train step at 128x192, 3 views, batch 1, on the card
+     and on the CPU plain path: loss rtol 1e-4, stage outputs by the
+     comparator, gradients by relative L2 within the float32 noise that the
+     CPU's float64 step measures
+ 10. learns: tests/test_training_learns.py's setup on the card; the
+     final-stage abs depth error drops at least 5x
+ 11. times: the DTU-mid train step (batch 2) by CUDA events, its peak memory
+     and a torch.profiler breakdown; per stage K2, K3, F.grid_sample forward
+     and backward, and the plain versions, in turns
 
 The last three lines are the card's name and power limit, a JSON line with
-the kernels' launches, errors and times (summed over the four stages), and
+the kernels' launches, errors and times (summed over the four stages; K2
+and K3 for one source view per stage, as one launch covers), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -29,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,12 +57,27 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
-from _torch_parity import assert_stage_close, stage_inputs, t, to_numpy_tree  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    assert_stage_close,
+    plane_batch,
+    relative_l2,
+    stage_inputs,
+    t,
+    to_numpy_tree,
+    torch_batch,
+    write_dtu_tree,
+)
 from helpers import synthetic_sample  # noqa: E402
-from mvster_tpu_torch.kernels import _build, warp_correlate  # noqa: E402
+from mvster_tpu_torch.core.geometry import plane_sweep_coords  # noqa: E402
+from mvster_tpu_torch.dist.train_step import make_train_step  # noqa: E402
+from mvster_tpu_torch.kernels import _build, warp_correlate, warp_vjp  # noqa: E402
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig  # noqa: E402
 from mvster_tpu_torch.tools.test import infer_views  # noqa: E402
-from mvster_tpu_torch.tools.weights import random_state_dict  # noqa: E402
+from mvster_tpu_torch.tools.weights import (  # noqa: E402
+    init_state_dict,
+    load_reference_ckpt,
+    random_state_dict,
+)
 
 H, W, NVIEWS = 512, 640, 5
 # (H, W, C, D, G) of each DTU-mid stage under dtu_default
@@ -52,6 +87,22 @@ KERNEL_TOL = 1e-4  # atol = rtol; kernel and plain sample at identical coordinat
 KERNEL = dict(name="warp_correlate", route="cuda",
               source="mvster_tpu_torch/csrc/warp_correlate.cu",
               replaces="mvster_tpu/kernels/pallas_warp.py:250")
+K2 = dict(name="warp_gather", route="cuda", source="mvster_tpu_torch/csrc/warp_scatter.cu",
+          replaces="mvster_tpu/kernels/pallas_warp.py:568")
+K3 = dict(name="warp_scatter", route="cuda", source="mvster_tpu_torch/csrc/warp_scatter.cu",
+          replaces="mvster_tpu/kernels/pallas_scatter.py:89")
+BATCH = 2  # the training cell's batch
+K2_ATOL = 1e-6  # K2 repeats the plain version's rounded operations
+K3_RTOL, K3_ATOL = 1e-4, 1e-5  # K3's atomics sum in no fixed order
+# the published DTU training flags (scripts/train_dtu.sh) at DTU-mid, batch 2
+TRAIN_FLAGS = ["--batch_size", str(BATCH), "--nviews", str(NVIEWS), "--epochs", "1",
+               "--group_cor", "--inverse_depth", "--mono", "--attn_temp", "2",
+               "--summary_freq", "1"]
+LOSS_KW = dict(inverse_depth=True, ot_iter=10, mono=True)  # l1ot_lw (0, 1)
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg):
@@ -97,6 +148,311 @@ def build_model(seed):
             sd[key] = t(rng.uniform(0.5, 2.0, sd[key].shape))
     model.load_state_dict(sd, strict=True)
     return model.eval()
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time for nbytes of device
+    memory traffic and flops float32 operations at the card's peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k1_work(h, w, c, d, g, b=1, v=NVIEWS - 1):
+    """K1's unique bytes (ref, source maps, hypotheses, rot/trans, output
+    read or written once) and operations (per pixel, view and hypothesis:
+    ~30 for the coordinates and weights, 9 per channel for the four taps
+    and the correlation)."""
+    nbytes = 4 * (b * h * w * c + v * b * h * w * c + b * d * h * w + v * b * 12
+                  + b * d * h * w * g)
+    return nbytes, b * h * w * v * d * (9 * c + 30)
+
+
+def k2_work(h, w, c, d, b=BATCH):
+    """K2 for one source view: reads src and x, y, writes (B, D, H, W, C);
+    7 operations per output value (4 products, 3 sums) and ~20 per
+    coordinate.  K3 moves the same bytes the other way (cotangent, x, y
+    in; dsrc out) with 8 per cotangent value (4 products, 4 atomic sums)."""
+    n = b * d * h * w
+    nbytes = 4 * (b * h * w * c + 2 * n + n * c)
+    return nbytes, n * (7 * c + 20), n * (8 * c + 20)
+
+
+def phase7_kernels(dev):
+    """K2 and K3 against their plain versions at the DTU-mid stage shapes,
+    batch 2, every source view; returns the max errors and one view's
+    (src, x, y, cot) per stage for phase 11."""
+    err2 = err3 = errf = 0.0
+    per_stage = []
+    for si, (h, w, c, d, _) in enumerate(STAGES):
+        inp = stage_inputs(200 + si, h, w, c, d, nsrc=NVIEWS - 1, batch=BATCH)
+        ref_proj, hypo = t(inp["ref_proj"], dev), t(inp["hypo"], dev)
+        rng = np.random.default_rng(300 + si)
+        for v in range(NVIEWS - 1):
+            x, y = plane_sweep_coords(t(inp["src_projs"][v], dev), ref_proj, hypo)
+            src = t(inp["src"][v], dev)
+            cot = t(rng.normal(size=(BATCH, d, h, w, c)), dev)
+            got = warp_vjp.warp_gather(src, x, y)
+            want = warp_vjp.warp_plain(src, x, y)
+            dsrc = warp_vjp.scatter_grad(cot, x, y, src.shape)
+            dwant = warp_vjp.scatter_grad_plain(cot, x, y, src.shape)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got).all() and torch.isfinite(dsrc).all()):
+                raise AssertionError(f"stage{si + 1} view {v}: non-finite K2/K3 output")
+            torch.testing.assert_close(got, want, rtol=0, atol=K2_ATOL)
+            torch.testing.assert_close(dsrc, dwant, rtol=K3_RTOL, atol=K3_ATOL)
+            err2 = max(err2, (got - want).abs().max().item())
+            err3 = max(err3, (dsrc - dwant).abs().max().item())
+            a, b = src.clone().requires_grad_(), src.clone().requires_grad_()
+            (warp_vjp.grid_sample_zeros_vjp(a, x, y) * cot).sum().backward()
+            (warp_vjp.warp_plain(b, x, y) * cot).sum().backward()
+            torch.testing.assert_close(a.grad, b.grad, rtol=K3_RTOL, atol=K3_ATOL)
+            errf = max(errf, (a.grad - b.grad).abs().max().item())
+            if v == 0:
+                per_stage.append((src, x, y, cot))
+    log(f"[7 kernels K2/K3] {len(STAGES)} stages x {NVIEWS - 1} views, batch {BATCH}: "
+        f"K2 vs plain max|d| {err2:.3e} (atol {K2_ATOL}), K3 vs plain max|d| {err3:.3e} "
+        f"(rtol {K3_RTOL}, atol {K3_ATOL}), Function src.grad vs plain autograd "
+        f"max|d| {errf:.3e}")
+    return err2, err3, per_stage
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase8_train(dev, tmp, card):
+    """The training entry point, one epoch at DTU-mid, batch 2; its
+    checkpoint then serves one request through K1."""
+    from mvster_tpu_torch.tools import train
+
+    root = os.path.join(tmp, "dtu")
+    t0 = time.perf_counter()
+    write_dtu_tree(root, n_views=NVIEWS, h=H, w=W)
+    tree_s = time.perf_counter() - t0
+    logdir = os.path.join(tmp, "log")
+    argv = ["--trainpath", root, "--trainlist", f"{root}/train.txt",
+            "--testlist", f"{root}/train.txt", "--logdir", logdir, *TRAIN_FLAGS]
+    warp_vjp.warp_gather.launches = warp_vjp.scatter_grad.launches = 0
+    t0 = time.perf_counter()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k2, k3 = warp_vjp.warp_gather.launches, warp_vjp.scatter_grad.launches
+    steps = result["steps"]
+    if steps != NVIEWS * 7 // BATCH:
+        raise AssertionError(f"{steps} train steps, expected {NVIEWS * 7 // BATCH}")
+    per_step = 4 * (NVIEWS - 1)
+    if k2 != per_step * steps or k3 != per_step * steps:
+        raise AssertionError(f"K2 {k2} / K3 {k3} launches for {steps} steps, "
+                             f"expected {per_step} each per step")
+    records = _jsonl(os.path.join(logdir, "metrics.jsonl"))
+    losses = [r["loss"] for r in records if r["mode"] == "train"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses {losses}")
+    val = [r for r in records if r["mode"] == "fulltest"]
+    if len(val) != 1 or not np.isfinite(val[0]["loss"]):
+        raise AssertionError(f"val records {val}")
+
+    config = MVS4NetConfig.dtu_default()
+    trained = load_reference_ckpt(result["checkpoint"], config)
+    init = init_state_dict(MVS4Net(config), seed=1)  # tools.train's --seed default
+    params = {name for name, _ in MVS4Net(config).named_parameters()}
+    moved = {k for k in params if not torch.equal(trained[k], init[k])}
+    # l1ot_lw (0, 1): the mono decoder's loss weight is 0, so Adam leaves it
+    expect = {k for k in params if not k.startswith("mono_depth_decoder.")}
+    if moved != expect:
+        raise AssertionError(f"moved parameters differ: {sorted(moved ^ expect)[:8]}")
+
+    model = MVS4Net(config)
+    model.load_state_dict(trained, strict=True)
+    model.to(dev).eval()
+    s = synthetic_sample(7, nviews=NVIEWS, h=H, w=W)
+    request = {"imgs": s["imgs"][0], "depth_values": s["depth_values"][0],
+               "proj_matrices": {k: v[0] for k, v in s["proj_matrices"].items()}}
+    warp_correlate.fused_cost_volume.launches = 0
+    served = list(infer_views(model, [request]))
+    k1 = warp_correlate.fused_cost_volume.launches
+    if k1 != 4 or not np.isfinite(served[0][1]["depth"]).all():
+        raise AssertionError(f"checkpoint serving: {k1} K1 launches")
+    log(f"[8 train] tools.train.main: {steps} steps of batch {BATCH} at {H}x{W}, "
+        f"{NVIEWS} views + a val pass in {train_s:.1f} s (tree written in {tree_s:.1f} s); "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}, val loss {val[0]['loss']:.3f}; "
+        f"K2 {k2} and K3 {k3} launches ({per_step} per step); {len(moved)} of "
+        f"{len(params)} parameter tensors moved (the mono decoder's, weighted 0, did "
+        f"not); the checkpoint loaded strictly and served a request through "
+        f"{k1} K1 launches in {1e3 * served[0][1]['seconds']:.2f} ms | {card}")
+    return k2, k3, root
+
+
+def phase9_card_vs_cpu(dev):
+    """One train step on the card and on the CPU's plain path, same weights
+    and batch; the CPU step in float64 is the exact reference for the
+    gradients (the backward through the last stage's Reg2d amplifies
+    float32 rounding, in any float32 implementation)."""
+    h, w = 128, 192
+    config = MVS4NetConfig.dtu_default()
+    sd = random_state_dict(MVS4Net(config), seed=9)
+    batch_np = plane_batch(1, h=h, w=w)
+    runs = {}
+    for name, device, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        model = MVS4Net(config)
+        model.load_state_dict(sd, strict=True)
+        model.to(device=device, dtype=dtype)
+        captured = {}
+        model.register_forward_hook(lambda m, i, o: captured.update(out=o))
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                               loss_kwargs=LOSS_KW)
+        batch = torch_batch(batch_np, device)
+        if dtype == torch.float64:
+            batch = {k: ({s: x.double() for s, x in v.items()} if isinstance(v, dict)
+                         else v.double()) for k, v in batch.items()}
+        scalars, _ = step(batch)
+        runs[name] = dict(loss=float(scalars["loss"]), out=to_numpy_tree(captured["out"]),
+                          grads={k: p.grad.double().cpu().numpy()
+                                 for k, p in model.named_parameters()})
+    card, cpu, exact = runs["card"], runs["cpu"], runs["cpu64"]
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-4)
+    assert_stage_close(cpu["out"], card["out"])
+    worst, worst_key, checked, worst_cpu, worst_card = 0.0, "", 0, 0.0, 0.0
+    for key, g_cpu in cpu["grads"].items():
+        g_card, g_exact = card["grads"][key], exact["grads"][key]
+        if np.linalg.norm(g_exact) < 1e-6:  # zero in exact arithmetic
+            np.testing.assert_allclose(g_card, g_cpu, atol=1e-6, err_msg=key)
+            continue
+        # each float32 gradient's distance from the float64 one: the card
+        # must compute the CPU's function (e_card within 30x the CPU's
+        # float32 noise, or 1e-3) and agree with the CPU as far as their
+        # float32 noise allows
+        e_cpu, e_card = relative_l2(g_cpu, g_exact), relative_l2(g_card, g_exact)
+        rel = relative_l2(g_card, g_cpu)
+        if e_card > max(1e-3, 30 * e_cpu) or rel > max(1e-3, 1.5 * (e_card + e_cpu)):
+            raise AssertionError(f"{key}: card vs CPU gradient relative L2 {rel:.2e}; "
+                                 f"card vs float64 {e_card:.2e}, CPU vs float64 {e_cpu:.2e}")
+        checked += 1
+        worst_cpu, worst_card = max(worst_cpu, e_cpu), max(worst_card, e_card)
+        if rel > worst:
+            worst, worst_key = rel, key
+    log(f"[9 card vs CPU] train step at {h}x{w}, 3 views, batch 1: loss "
+        f"{card['loss']:.6f} vs {cpu['loss']:.6f} (rtol 1e-4); stage outputs match by "
+        f"the comparator; {checked} gradient tensors agree within their float32 "
+        f"noise: worst card vs CPU relative L2 {worst:.2e} ({worst_key}); against the "
+        f"CPU's float64 step the card's float32 gradients lie up to {worst_card:.2e} "
+        f"and the CPU's up to {worst_cpu:.2e}")
+
+
+def phase10_learns(dev):
+    """tests/test_training_learns.py's single-device setup on the card."""
+    config = MVS4NetConfig(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
+                           fpn_base_channel=4, reg_channel=4, attn_temp=2.0, mono=True)
+    model = MVS4Net(config)
+    model.load_state_dict(init_state_dict(model, seed=0), strict=True)
+    model.to(dev)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                           loss_kwargs=LOSS_KW)
+    batch = torch_batch(plane_batch(2), dev)
+    warp_vjp.warp_gather.launches = warp_vjp.scatter_grad.launches = 0
+    errs, losses = [], []
+    for _ in range(60):
+        scalars, _ = step(batch)
+        errs.append(float(scalars["abs_depth_error"]))
+        losses.append(float(scalars["loss"]))
+    errs, losses = np.array(errs), np.array(losses)
+    launches = (warp_vjp.warp_gather.launches, warp_vjp.scatter_grad.launches)
+    start, end = errs[:3].mean(), errs[-3:].mean()
+    if not np.isfinite(losses).all() or not end < start / 5:
+        raise AssertionError(f"abs depth error {start:.2f} -> {end:.2f}, losses {losses}")
+    if not losses[-3:].mean() < 0.7 * losses[:3].mean() or launches != (480, 480):
+        raise AssertionError(f"loss {losses[:3]} -> {losses[-3:]}, launches {launches}")
+    log(f"[10 learns] 60 steps on two planes at 64x64: abs depth error {start:.2f} -> "
+        f"{end:.2f} mm ({start / end:.1f}x), loss {losses[:3].mean():.3f} -> "
+        f"{losses[-3:].mean():.3f}; K2/K3 launches {launches}")
+
+
+def phase11_times(dev, root, per_stage, card):
+    """The train step's time, peak memory and profile; K2/K3 per stage."""
+    from mvster_tpu_torch.data import MVSLoader
+    from mvster_tpu_torch.data.dtu import DTUDataset
+    from mvster_tpu_torch.train.loop import device_batch
+
+    config = MVS4NetConfig.dtu_default()
+    model = MVS4Net(config)
+    model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+    model.to(dev)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                           loss_kwargs=LOSS_KW)
+    ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
+    batch = device_batch(next(iter(MVSLoader(ds, BATCH, prefetch=0))), dev)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(batch), iters=5, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[11 times] train step {step_ms:.2f} ms (DTU-mid {H}x{W}, {NVIEWS} views, "
+        f"batch {BATCH}, f32, mean of 5 after 2 warm-up, CUDA events); peak memory "
+        f"{peak / 2**30:.3f} GiB | {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+    # the kernels' own events (device type CUDA), summed by name
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total", 0) for e in kernels}
+    busy = sum(dev_us.values()) / 3 / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    log(f"[11 times] profile of 3 steps: device busy {busy:.2f} ms per step, "
+        f"{sum(e.count for e in kernels) // 3} kernel launches per step; top kernels by "
+        "device time per step: "
+        + "; ".join(f"{k[:70]} {v / 3 / 1e3:.3f} ms" for k, v in top) + f" | {card}")
+
+    sums = dict(k2=0.0, k3=0.0, gs_f=0.0, gs_b=0.0, p2=0.0, p3=0.0, b2=0.0, b3=0.0)
+    by2 = by3 = "bytes"
+    for si, (src, x, y, cot) in enumerate(per_stage):
+        h, w, c, d, _ = STAGES[si]
+        src_nchw = src.permute(0, 3, 1, 2).contiguous().requires_grad_()
+        grid = torch.stack([x * (2.0 / (w - 1)) - 1.0, y * (2.0 / (h - 1)) - 1.0],
+                           dim=-1).reshape(BATCH, d * h, w, 2)
+        cot_nchw = cot.permute(0, 4, 1, 2, 3).reshape(BATCH, c, d * h, w).contiguous()
+
+        def gs_fwd():
+            return torch.nn.functional.grid_sample(
+                src_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+        gs_out = gs_fwd()
+
+        def gs_bwd():
+            torch.autograd.grad(gs_out, src_nchw, cot_nchw, retain_graph=True)
+
+        fns = dict(
+            k2=lambda: warp_vjp.warp_gather(src, x, y),
+            k3=lambda: warp_vjp.scatter_grad(cot, x, y, src.shape),
+            p2=lambda: warp_vjp.warp_plain(src, x, y),
+            p3=lambda: warp_vjp.scatter_grad_plain(cot, x, y, src.shape),
+            gs_f=gs_fwd, gs_b=gs_bwd,
+        )
+        order = ["p2", "k2", "gs_f", "p3", "k3", "gs_b"]
+        times = {k: [] for k in fns}
+        for name in order + order[::-1]:  # in turns: forward, then back again
+            times[name].append(cuda_ms(fns[name], iters=10))
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        nbytes, ops2, ops3 = k2_work(h, w, c, d)
+        b2, by2 = bound(nbytes, ops2)
+        b3, by3 = bound(nbytes, ops3)
+        for k in ms:
+            sums[k] += ms[k]
+        sums["b2"] += b2
+        sums["b3"] += b3
+        log(f"[11 times] stage{si + 1} {(h, w)} C={c} D={d} B={BATCH}, one view: K2 "
+            f"{ms['k2']:.4f} ms (plain {ms['p2']:.4f}, F.grid_sample {ms['gs_f']:.4f}, "
+            f"bound {b2:.4f}); K3 {ms['k3']:.4f} ms (plain {ms['p3']:.4f}, grid_sample "
+            f"backward {ms['gs_b']:.4f}, bound {b3:.4f}); {nbytes / 1e6:.1f} MB | {card}")
+    return sums, by2, by3
 
 
 def main():
@@ -222,12 +578,32 @@ def main():
         log(f"[6 times] stage{si + 1} {STAGES[si][:2]} C={STAGES[si][2]} D={STAGES[si][3]} "
             f"G={g}: kernel {k_ms:.4f} ms, with rot/trans {w_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms | {card}")
+    k1_bounds = [bound(*k1_work(*st)) for st in STAGES]
+    k1_bound = sum(b for b, _ in k1_bounds)
+    log(f"[6 times] K1 bound {k1_bound:.4f} ms over the four stages ("
+        + ", ".join(f"s{i + 1} {b * 1e3:.1f} us by {by}" for i, (b, by) in enumerate(k1_bounds))
+        + ")")
+
+    # 7-11: the training path
+    err2, err3, per_stage = phase7_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        k2_launches, k3_launches, root = phase8_train(dev, tmp, card)
+        phase9_card_vs_cpu(dev)
+        phase10_learns(dev)
+        sums, by2, by3 = phase11_times(dev, root, per_stage, card)
 
     print(card)
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=main_path_launches, max_abs_err=max(errs),
-        ms=k_total, plain_ms=p_total, wrapper_ms=w_total,
-    )]}))
+    print(json.dumps({"kernels": [
+        dict(KERNEL, launches=main_path_launches, max_abs_err=max(errs), ms=k_total,
+             plain_ms=p_total, bound_ms=k1_bound, bound_by=k1_bounds[-1][1],
+             library_ms=None, wrapper_ms=w_total),
+        dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["k2"],
+             plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
+             library_ms=sums["gs_f"]),
+        dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["k3"],
+             plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
+             library_ms=sums["gs_b"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

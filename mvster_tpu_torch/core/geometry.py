@@ -50,8 +50,9 @@ def inverse_3x3(m: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c with one rounding (the product is exact in float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a * b + c with one rounding (the product is exact in float64);
+    float64 inputs stay float64."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (mvster_tpu_torch/csrc/*.cu).
 
-At first use, nvcc compiles every source under csrc/ into one shared
-library with a plain C interface, which is then loaded with ctypes:
+At first use, nvcc compiles every source under csrc/ (one nvcc process per
+source, all started together) and links them into one shared library with
+a plain C interface, which is then loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o lib.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o x.o csrc/x.cu      # each source
+    nvcc ... -shared -o lib.so *.o
 
 The library lands in build/mvster_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, so an edited source is rebuilt and an
@@ -62,22 +64,40 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build into a temporary name and rename, so concurrent builds never
-    # load a half-written library
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    # build into temporary names and rename, so concurrent builds never load
+    # a half-written library; one nvcc per source, all started together,
+    # then one link
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
     os.close(fd)
+    objs = [f"{tmp}.{src.stem}.o" for src in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    (lib_path.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [
+        subprocess.Popen([nvcc, *compile_flags, "-c", "-o", obj, str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(cu, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(cu, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode}):\n{link.stderr}")
+    (lib_path.parent / "nvcc.log").write_text("\n".join(logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.unlink(obj)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
@@ -96,6 +116,14 @@ def load_library() -> ctypes.CDLL:
             p,                          # cudaStream_t
         ]
         lib.mvster_warp_correlate.restype = i
+        for name in ("mvster_warp_gather", "mvster_warp_scatter"):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                p, p, p, p,             # src|cot, x, y, out|dsrc
+                i, i, i, i, i, i,       # B, N, Hs, Ws, C, vec4
+                p,                      # cudaStream_t
+            ]
+            fn.restype = i
         lib.mvster_cuda_error_string.argtypes = [i]
         lib.mvster_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,10 +5,20 @@ unrolled loop over source views that accumulates the attention-weighted
 correlation online (a running weighted sum and a running weight that
 starts at 1e-8), so peak memory is one warped volume, not one per view.
 
-`build_cost_volume(group_cor=True)` on a CUDA tensor runs the fused CUDA
-kernel of kernels/warp_correlate.py; on a CPU tensor it runs the plain
-formulation below.  Layouts are channels-last: features (B, H, W, C),
-hypotheses (B, D, H, W), volume (B, D, H, W, G) or (B, D, H, W, C).
+Two routes, as the JAX package's impl="pallas" / impl="xla":
+
+  impl="fused"  (eval) `build_cost_volume(group_cor=True)` runs the fused
+                kernel of kernels/warp_correlate.py (K1) on a CUDA tensor,
+                the plain formulation below on a CPU tensor;
+  impl="warp"   (training, differentiable) the per-view formulation below
+                with the warp through kernels/warp_vjp.grid_sample_zeros_vjp:
+                K2 gathers, K3 scatters the gradient back to the source
+                features; the coordinates are detached, as in the JAX package.
+
+Layouts are channels-last: features (B, H, W, C), hypotheses (B, D, H, W),
+volume (B, D, H, W, G) or (B, D, H, W, C).  The plain formulation keeps its
+inputs' dtype: float32 in the model, float64 where a test wants an exact
+reference.
 """
 
 from __future__ import annotations
@@ -32,6 +42,24 @@ def warp_src_feature(
     frustum at hypotheses (B, D, Hr, Wr) -> (B, D, Hr, Wr, C)."""
     x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo)
     return grid_sample_zeros(src_feat, x, y)
+
+
+def warp_src_feature_vjp(
+    src_feat: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth_hypo: torch.Tensor,
+) -> torch.Tensor:
+    """warp_src_feature for training: K2 forward, K3 backward on a card.
+
+    The coordinates are detached, so the zero-coordinate-gradient contract
+    of grid_sample_zeros_vjp holds whatever the caller passes (MVSTER
+    detaches the hypotheses between stages and the cameras are constants).
+    """
+    from mvster_tpu_torch.kernels.warp_vjp import grid_sample_zeros_vjp
+
+    x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo)
+    return grid_sample_zeros_vjp(src_feat.contiguous(), x.detach(), y.detach())
 
 
 def correlate(
@@ -61,7 +89,7 @@ def view_weight(
     """One source view's attention weight: softmax over depth of the
     channel-summed correlation, scaled 1/sqrt(C) -> (B, D, H, W); or, when
     not attn_fuse_d, the per-pixel max of that softmax -> (B, H, W)."""
-    score = torch.sum(cor_feat, dim=-1).float()
+    score = torch.sum(cor_feat, dim=-1)
     if attn_fuse_d:
         return torch.softmax(score / attn_temp, dim=1) / math.sqrt(feat_channels)
     return torch.max(torch.softmax(score, dim=1), dim=1).values
@@ -78,16 +106,17 @@ def plain_cost_volume(
     group_dim: int,
     attn_temp: float,
     attn_fuse_d: bool,
+    warp=warp_src_feature,
 ) -> torch.Tensor:
-    """The plain formulation: per-view warp, correlate, weight, accumulate."""
+    """The plain formulation: per-view warp, correlate, weight, accumulate;
+    `warp` is warp_src_feature or, for training, warp_src_feature_vjp."""
     c = ref_feat.shape[-1]
-    weight_sum = torch.tensor(1e-8, dtype=torch.float32, device=ref_feat.device)
-    feats_sum = torch.tensor(0.0, dtype=torch.float32, device=ref_feat.device)
+    weight_sum = torch.tensor(1e-8, dtype=ref_feat.dtype, device=ref_feat.device)
+    feats_sum = torch.tensor(0.0, dtype=ref_feat.dtype, device=ref_feat.device)
     for v in range(len(src_feats)):
-        warped = warp_src_feature(src_feats[v], src_projs[v], ref_proj, depth_hypo)
+        warped = warp(src_feats[v], src_projs[v], ref_proj, depth_hypo)
         cor = correlate(warped, ref_feat, group_cor, group_dim)
         w = view_weight(cor, c, attn_temp, attn_fuse_d)
-        cor = cor.float()
         weight_sum = weight_sum + w
         if attn_fuse_d:
             feats_sum = feats_sum + w[..., None] * cor
@@ -109,17 +138,28 @@ def build_cost_volume(
     group_dim: int = 8,
     attn_temp: float = 2.0,
     attn_fuse_d: bool = True,
+    impl: str = "fused",
     with_fallbacks: bool = False,
 ):
     """Fused multi-view cost volume with online cross-view normalisation.
 
     ref_feat (B, H, W, C); src_feats (V, B, H, W, C) or V tensors
     (B, H, W, C); ref_proj (B, 4, 4); src_projs (V, B, 4, 4) or V tensors
-    (B, 4, 4); depth_hypo (B, D, H, W).  Returns (B, D, H, W, G) with
-    group_cor, else (B, D, H, W, C); with_fallbacks also returns the JAX
-    package's fallback count, which is always 0 here (no path falls back).
+    (B, 4, 4); depth_hypo (B, D, H, W).  impl: "fused" (eval, K1) or "warp"
+    (training, differentiable: K2/K3 per source view).  Returns
+    (B, D, H, W, G) with group_cor, else (B, D, H, W, C); with_fallbacks
+    also returns the JAX package's fallback count, which is always 0 here
+    (no path falls back).
     """
-    if group_cor:
+    if impl not in ("fused", "warp"):
+        raise ValueError(f"impl must be 'fused' or 'warp', got {impl!r}")
+    if impl == "warp":
+        out = plain_cost_volume(
+            ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
+            group_cor=group_cor, group_dim=group_dim, attn_temp=attn_temp,
+            attn_fuse_d=attn_fuse_d, warp=warp_src_feature_vjp,
+        )
+    elif group_cor:
         from mvster_tpu_torch.kernels.warp_correlate import fused_cost_volume
 
         if not isinstance(src_feats, torch.Tensor):

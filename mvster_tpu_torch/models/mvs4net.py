@@ -1,10 +1,16 @@
-"""MVS4Net: the 4-stage coarse-to-fine cascade, eval forward (counterpart of mvster_tpu.models.mvs4net).
+"""MVS4Net: the 4-stage coarse-to-fine cascade (counterpart of mvster_tpu.models.mvs4net).
 
 Per stage: depth hypotheses (inverse-range init, or a schedule around the
-previous stage), the multi-view cost volume (the CUDA kernel on a card),
-Reg2d, a softmax over depth, winner-take-all depth (the first maximum wins
-a tie) and the max-probability confidence, upsampled to full resolution.
-Views are folded into the batch for the FPN, as in the JAX package.
+previous stage), the multi-view cost volume, Reg2d, a softmax over depth,
+winner-take-all depth (the first maximum wins a tie) and the
+max-probability confidence, upsampled to full resolution.  Views are folded
+into the batch for the FPN, as in the JAX package, so in training its
+BatchNorm statistics are taken over B*V images.
+
+In eval the cost volume is the fused kernel K1 (one launch per stage); in
+training it is the differentiable route, K2 gathers and K3 gradients per
+source view (kernels/cost_volume.py), and with config.mono the monocular
+decoder runs too.
 
 Module names follow the reference checkpoint's state-dict grammar
 (`feature.*`, `reg.{s}.*`), so `load_state_dict(strict=True)` takes both
@@ -29,13 +35,14 @@ from mvster_tpu_torch.core.hypothesis import (
 from mvster_tpu_torch.core.sampling import resize_bilinear_align_corners
 from mvster_tpu_torch.kernels.cost_volume import build_cost_volume
 from mvster_tpu_torch.nn.fpn import FPN4
+from mvster_tpu_torch.nn.mono import MonoDepthDecoder
 from mvster_tpu_torch.nn.reg import Reg2d
 
 __all__ = ["MVS4Net", "MVS4NetConfig"]
 
 
 class MVS4Net(nn.Module):
-    """4-stage cascaded MVS depth network, eval mode.
+    """4-stage cascaded MVS depth network.
 
     forward(imgs, proj_matrices, depth_values):
       imgs: (B, V, H, W, 3) images in [0, 1], view 0 the reference; H and W
@@ -44,9 +51,8 @@ class MVS4Net(nn.Module):
       depth_values: (B, K), [:, 0] = dmin and [:, -1] = dmax.
     Returns {"stage{i}": {depth, photometric_confidence, hypo_depth,
     attn_weight, warp_fallbacks[, inverse_min_depth, inverse_max_depth]
-    [, mono_feat]}} with the final stage's fields also at the top level.
-    Training (and with it BatchNorm's batch statistics) is not ported yet,
-    so forward raises in train mode: call .eval() first.
+    [, mono_feat][, mono_depth]}} with the final stage's fields also at the
+    top level; mono_depth (stages 2-4) only in training with config.mono.
     """
 
     def __init__(self, config: MVS4NetConfig):
@@ -64,13 +70,11 @@ class MVS4Net(nn.Module):
             Reg2d(in_channels[s], config.reg_channel)
             for s in range(config.num_stage)
         )
+        if config.mono:
+            self.mono_depth_decoder = MonoDepthDecoder(self.feature.out_channels)
 
     def forward(self, imgs: torch.Tensor, proj_matrices: dict[str, torch.Tensor],
                 depth_values: torch.Tensor) -> dict[str, Any]:
-        if self.training:
-            raise NotImplementedError(
-                "MVS4Net runs in eval mode only (training is not ported yet)"
-            )
         cfg = self.config
         b, v, h, w, _ = imgs.shape
         if h % 64 or w % 64:
@@ -109,6 +113,14 @@ class MVS4Net(nn.Module):
                                depth_hypo, stage_idx)
             outputs[stage_key] = prev
         outputs.update(prev)
+
+        if cfg.mono and self.training:
+            mono_depths = self.mono_depth_decoder(
+                {key: outputs[key]["mono_feat"] for key in features},
+                depth_values[:, 0], depth_values[:, 1],
+            )
+            for key, depth in mono_depths.items():
+                outputs[key]["mono_depth"] = depth
         return outputs
 
     def _stage(self, feat_stage, projs, depth_hypo, stage_idx):
@@ -123,10 +135,10 @@ class MVS4Net(nn.Module):
             ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
             group_cor=cfg.group_cor, group_dim=cfg.group_cor_dim[stage_idx],
             attn_temp=cfg.attn_temp, attn_fuse_d=cfg.attn_fuse_d,
-            with_fallbacks=True,
+            impl="warp" if self.training else "fused", with_fallbacks=True,
         )  # (B, D, H, W, G|C)
         logits = self.reg[stage_idx](cor.permute(0, 4, 1, 2, 3).contiguous())
-        attn_weight = torch.softmax(logits.float(), dim=1)  # (B, D, H, W)
+        attn_weight = torch.softmax(logits, dim=1)  # (B, D, H, W)
 
         # winner-take-all depth; torch.argmax returns the first maximum
         idx = torch.argmax(attn_weight, dim=1, keepdim=True)

@@ -2,10 +2,14 @@
 
 NCHW / NCDHW layouts, as cuDNN wants them.  Module and parameter names
 follow the reference checkpoint's state-dict grammar
-(mvster_tpu/tools/convert_torch_ckpt.py): `conv` / `bn` inside the blocks,
-`0` / `1` for the transposed conv and its norm.  BatchNorm uses torch's
-eps 1e-5 and momentum 0.1 (flax's momentum 0.9).  The convolutions have no
-bias, since a norm follows each one.
+(tools/convert.py): `conv` / `bn` inside the blocks, `0` / `1` for the
+transposed conv and its norm.  The convolutions have no bias, since a norm
+follows each one.
+
+BatchNorm (eps 1e-5, momentum 0.1 = flax's 0.9) follows flax in training:
+it normalises with the batch's mean and biased variance, as torch does, and
+updates the running buffers with that same biased variance, where torch's
+own BatchNorm would take the unbiased one.
 """
 
 from __future__ import annotations
@@ -13,7 +17,33 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class _FlaxStats:
+    """Train-mode BatchNorm with flax's running-statistics update."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStats, nn.BatchNorm3d):
+    pass
 
 
 class ConvBlock2d(nn.Module):
@@ -24,7 +54,7 @@ class ConvBlock2d(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               padding, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +72,7 @@ class ConvBnReLU3D(nn.Module):
         super().__init__()
         self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, stride,
                               pad, bias=False)
-        self.bn = nn.BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.conv(x)))
@@ -57,6 +87,6 @@ class ConvTransposeBnReLU3d(nn.Sequential):
             nn.ConvTranspose3d(in_channels, out_channels, kernel_size=(1, 3, 3),
                                stride=(1, 2, 2), padding=(0, 1, 1),
                                output_padding=(0, 1, 1), bias=False),
-            nn.BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
+            BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
             nn.ReLU(),
         )

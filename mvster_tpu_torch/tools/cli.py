@@ -1,13 +1,17 @@
-"""Flags of the port's inference tool (counterpart of mvster_tpu.tools.cli).
+"""Flags of the port's inference and training tools (counterpart of mvster_tpu.tools.cli).
 
-The model flags are the JAX inference tool's (tools/cli.py add_model_args), mapped
-onto the port's MVS4NetConfig; the test flags are the subset that the
-port's inference tool runs (general_eval, depth maps only).
+The model flags are the JAX package's (add_model_args), mapped onto the
+port's MVS4NetConfig; the test flags are the subset that the port's
+inference tool runs (general_eval, depth maps only); the train flags are
+the JAX training tool's for one process on one device.  Both tools take
+--device, default cuda, and raise without a card unless given --device cpu.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from mvster_tpu_torch.config import MVS4NetConfig
 
@@ -18,6 +22,24 @@ def _csv_ints(text: str):
 
 def _csv_floats(text: str):
     return tuple(float(x) for x in text.split(",") if x)
+
+
+def add_device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain versions)")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to run on; raises for a CUDA device when there is no card,
+    so an entry point never falls back to the CPU unasked."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is available; the port runs on "
+            "an NVIDIA GPU (pass --device cpu to run on the CPU)"
+        )
+    return device
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -81,7 +103,67 @@ def build_test_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_h", type=int, default=864)
     p.add_argument("--max_w", type=int, default=1152)
     p.add_argument("--use_raw_train", action="store_true")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    add_device_arg(p)
+    add_model_args(p)
+    return p
+
+
+def loss_kwargs_from_args(args, mono: bool) -> dict:
+    return dict(
+        stage_lw=_csv_floats(args.dlossw),
+        l1ot_lw=_csv_floats(args.l1ce_lw),
+        inverse_depth=args.inverse_depth,
+        ot_iter=args.ot_iter,
+        ot_eps=args.ot_eps,
+        ot_continous=args.ot_continous,
+        ot_backend=args.ot_backend,
+        mono=mono,
+    )
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="mvster_tpu_torch training tool: one process on one "
+                    "device (DTU; data parallelism is not ported yet)",
+    )
+    p.add_argument("--mode", default="train", choices=["train", "profile"],
+                   help="profile: a torch.profiler trace of 3 train steps")
+    p.add_argument("--dataset", default="dtu", choices=["dtu", "dtu_yao4"])
+    p.add_argument("--trainpath", required=True)
+    p.add_argument("--testpath", default=None)
+    p.add_argument("--trainlist", required=True)
+    p.add_argument("--testlist", required=True)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lrepochs", type=str, default="6,8,9:2")
+    p.add_argument("--lr_scheduler", default="MS", choices=["MS", "cos", "onecycle"])
+    p.add_argument("--wd", type=float, default=0.0)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--interval_scale", type=float, default=1.06)
+    p.add_argument("--loadckpt", default=None,
+                   help="initial weights: a reference MVSTER .ckpt or a saved state dict")
+    p.add_argument("--logdir", default="./checkpoints/debug")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--summary_freq", type=int, default=100)
+    p.add_argument("--save_freq", type=int, default=1)
+    p.add_argument("--eval_freq", type=int, default=1)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--nviews", type=int, default=5)
+    p.add_argument("--dlossw", type=str, default="1,1,1,1")
+    p.add_argument("--l1ce_lw", type=str, default="0,1")
+    p.add_argument("--ot_continous", action="store_true")
+    p.add_argument("--ot_iter", type=int, default=10)
+    p.add_argument("--ot_eps", type=float, default=1)
+    p.add_argument("--ot_backend", default="xla", choices=["xla", "pallas"],
+                   help="pallas needs the fused Sinkhorn kernels, not ported "
+                        "yet: it raises")
+    p.add_argument("--rt", action="store_true")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="split each batch into N microbatches, accumulate "
+                        "gradients, apply one optimizer update")
+    p.add_argument("--use_raw_train", action="store_true")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="decode samples in N worker processes (0 = in-process)")
+    add_device_arg(p)
     add_model_args(p)
     return p

@@ -7,7 +7,8 @@ chunk, results copied to the host.  It imports nothing beyond torch and
 numpy.  Unlike the JAX inference tool it does not dispatch the next chunk before
 draining the current one.
 
-`main` is the `--dataset general_eval` command line: it writes
+`main` is the `--dataset general_eval` command line, on the card unless
+`--device cpu` is given (without a card it raises): it writes
 depth_est/*.pfm, confidence/*.pfm, cams/*_cam.txt and images/*.jpg per scan
 in the JAX inference tool's layout (without its ply_local dumps).  Point-cloud
 fusion and the DTU metric are not ported yet, so it writes depth maps only.
@@ -26,8 +27,13 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from mvster_tpu_torch.data import find_dataset_def
 from mvster_tpu_torch.models.mvs4net import MVS4Net
-from mvster_tpu_torch.tools.cli import build_test_parser, model_config_from_args
+from mvster_tpu_torch.tools.cli import (
+    build_test_parser,
+    model_config_from_args,
+    resolve_device,
+)
 from mvster_tpu_torch.tools.weights import load_reference_ckpt
 
 
@@ -82,8 +88,8 @@ def _write_view_outputs(args, sample, out):
     """One reference view's PFMs, cam file and image, in the JAX inference tool's layout."""
     import cv2
 
-    from mvster_tpu.data.common import write_cam_file
-    from mvster_tpu.data.pfm import write_pfm
+    from mvster_tpu_torch.data.common import write_cam_file
+    from mvster_tpu_torch.data.pfm import write_pfm
 
     filename = sample["filename"]
     cam = sample["proj_matrices"]["stage4"][0]  # reference view, full-res K
@@ -107,10 +113,6 @@ def _write_view_outputs(args, sample, out):
 
 def main(argv=None):
     args = build_test_parser().parse_args(argv)
-    # the data loaders need PIL (and cv2 for resizes); imported here so the
-    # rest of the port runs without them
-    from mvster_tpu.data import find_dataset_def
-
     if args.use_raw_train:
         args.max_h, args.max_w = 1200, 1600
     if args.testlist != "all" and os.path.isfile(args.testlist):
@@ -119,7 +121,7 @@ def main(argv=None):
     else:
         testlist = [args.testlist]
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     # full float32 convolutions, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -76,6 +76,36 @@ def test_plain_matches_jax_pallas_interpret(attn_fuse_d):
     np.testing.assert_allclose(_port(inp, **kw), got, rtol=1e-4, atol=1e-5)
 
 
+def test_train_route_matches_jax_xla_and_its_gradients():
+    """impl="warp" (the training route: detached coordinates, the autograd
+    warp) against the JAX package's impl="xla" (grid_sample_zeros_vjp):
+    the volume at atol 1e-5, and the gradients of a weighted sum with
+    respect to the reference and source features at rtol 1e-4 / atol 1e-6."""
+    import jax
+    import jax.numpy as jnp
+
+    from mvster_tpu.kernels.cost_volume import build_cost_volume as jax_bcv
+
+    inp = stage_inputs(6, 32, 48, 8, 4, nsrc=2, batch=2)
+    weights = np.random.default_rng(6).normal(size=(2, 4, 32, 48, 4)).astype(np.float32)
+    kw = dict(group_cor=True, group_dim=4, attn_temp=2.0, attn_fuse_d=True)
+
+    def jax_loss(ref, src):
+        out = jax_bcv(ref, src, jnp.asarray(inp["ref_proj"]), jnp.asarray(inp["src_projs"]),
+                      jnp.asarray(inp["hypo"]), impl="xla", **kw)
+        return jnp.sum(out * weights), out
+
+    (_, want), (g_ref, g_src) = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(inp["ref"]), jnp.asarray(inp["src"]))
+    ref, src = t(inp["ref"]).requires_grad_(), t(inp["src"]).requires_grad_()
+    got = build_cost_volume(ref, src, t(inp["ref_proj"]), t(inp["src_projs"]),
+                            t(inp["hypo"]), impl="warp", **kw)
+    (got * t(weights)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ref.grad.numpy(), np.asarray(g_ref), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(src.grad.numpy(), np.asarray(g_src), rtol=1e-4, atol=1e-6)
+
+
 def test_build_cost_volume_reports_no_fallbacks():
     inp = stage_inputs(2, 64, 64, 8, 4, nsrc=1)
     out, fallbacks = build_cost_volume(

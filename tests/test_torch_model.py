@@ -158,12 +158,66 @@ def test_eval_forward_matches_jax(jax_setup, overrides, atol):
 
 
 def test_forward_needs_eval_mode_and_64_multiples():
-    model = MVS4Net(MVS4NetConfig.dtu_default(mono=False))
-    sample = plane_scene_sample(0, h=64, w=96)
-    with pytest.raises(NotImplementedError, match="eval"):
-        _forward(model, sample)
+    """Eval mode runs the fused K1 route; train mode (now ported) the
+    differentiable K2/K3 route and, with mono, the decoder; both take only
+    multiples of 64."""
+    from mvster_tpu_torch.kernels import cost_volume
+
+    model = MVS4Net(MVS4NetConfig.dtu_default())
+    model.load_state_dict(random_state_dict(model, seed=0), strict=True)
+    routes = []
+    real = cost_volume.build_cost_volume
+
+    def spy(*args, **kw):
+        routes.append(kw["impl"])
+        return real(*args, **kw)
+
+    sample = plane_scene_sample(0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("mvster_tpu_torch.models.mvs4net.build_cost_volume", spy)
+        train_out = model.train()(t(sample["imgs"]),
+                                  {k: t(v) for k, v in sample["proj_matrices"].items()},
+                                  t(sample["depth_values"]))
+        eval_out = _forward(model.eval(), sample)
+    assert routes == ["warp"] * 4 + ["fused"] * 4
+    assert [k for k in train_out["stage4"] if k.startswith("mono")] == ["mono_feat", "mono_depth"]
+    assert "mono_depth" not in eval_out["stage4"]
+    assert train_out["stage4"]["mono_depth"].shape == (1, 64, 64)
     with pytest.raises(ValueError, match="multiples of 64"):
-        _forward(model.eval(), sample)
+        _forward(model.eval(), plane_scene_sample(0, h=64, w=96))
+
+
+def test_train_batchnorm_updates_running_stats_as_flax():
+    """flax's BatchNorm (momentum 0.9) moves running_var toward the biased
+    batch variance, where torch's own BatchNorm takes the unbiased one; at
+    n = 2 * 3 * 3 values per channel the two differ by 9/8.  atol 1e-6."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from mvster_tpu_torch.nn.blocks import BatchNorm2d
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(1.0, 2.0, size=(2, 3, 3, 4)).astype(np.float32)  # NHWC
+    mean0 = rng.normal(size=4).astype(np.float32)
+    var0 = rng.uniform(0.5, 1.5, size=4).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, size=4).astype(np.float32)
+    bias = rng.normal(size=4).astype(np.float32)
+    y_jax, state = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5).apply(
+        {"params": {"scale": scale, "bias": bias},
+         "batch_stats": {"mean": mean0, "var": var0}},
+        jnp.asarray(x), mutable=["batch_stats"])
+    bn = BatchNorm2d(4, eps=1e-5, momentum=0.1)
+    bn.load_state_dict({"weight": t(scale), "bias": t(bias), "running_mean": t(mean0),
+                        "running_var": t(var0), "num_batches_tracked": torch.tensor(0)})
+    y = bn.train()(t(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(), np.asarray(y_jax),
+                               atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(state["batch_stats"]["mean"]), atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(state["batch_stats"]["var"]), atol=1e-6)
+    unbiased = 0.9 * var0 + 0.1 * x.reshape(-1, 4).var(axis=0, ddof=1)
+    assert not np.allclose(bn.running_var.numpy(), unbiased, atol=1e-3)
 
 
 @pytest.mark.parametrize("mono", [False, True])
