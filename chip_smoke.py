@@ -33,6 +33,26 @@ Phases, one line each, any failure exits non-zero:
  11. times: the DTU-mid train step (batch 2) by CUDA events, its peak memory
      and a torch.profiler breakdown; per stage K2, K3, F.grid_sample forward
      and backward, and the plain versions, in turns
+ 12. kernels K4/K5: the fused Sinkhorn loss's forward and backward against
+     their plain versions at the four DTU-mid stage shapes, batch 2, 10
+     iterations (K4 rtol 1e-5 / atol 1e-6 per pixel; K5 rtol 1e-4 with an
+     absolute floor of 1e-4 of the largest |dL/dpred|), and the autograd
+     Function's gradient against autograd through the plain forward (the
+     K5 tolerance)
+ 13. fine-tune: tools.train.main --dataset blendedmvs --ot_backend pallas,
+     one epoch at 576x768, 7 views, batch 2 (3 steps) and a val pass, on a
+     synthetic BlendedMVS tree written at full size, from phase 8's
+     checkpoint (--loadckpt); finite loss, EPE, err1 and err3, parameters
+     moved, per step 4 K4, 4 K5, 24 K2 and 24 K3 launches, per val batch 4
+     K1 and 4 K4
+ 14. backends: one DTU-mid batch-2 train step with ot_backend pallas and
+     xla from the same weights and batch: per-stage OT losses at rtol
+     1e-5, gradients within the float32 noise that a float64 step on the
+     card (plain warp) measures, as tests/_torch_parity.check_grads holds
+     them
+ 15. times: per stage K4, K5, their plain versions and both backends' loss
+     forward+backward; the DTU-mid train step with pallas and with xla; the
+     BlendedMVS step and its peak memory; CUDA events, in turns
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -43,6 +63,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -58,6 +79,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 from _torch_parity import (  # noqa: E402
+    GRAD_NOISE,
     assert_stage_close,
     plane_batch,
     relative_l2,
@@ -65,12 +87,13 @@ from _torch_parity import (  # noqa: E402
     t,
     to_numpy_tree,
     torch_batch,
+    write_blendedmvs_tree,
     write_dtu_tree,
 )
 from helpers import synthetic_sample  # noqa: E402
 from mvster_tpu_torch.core.geometry import plane_sweep_coords  # noqa: E402
 from mvster_tpu_torch.dist.train_step import make_train_step  # noqa: E402
-from mvster_tpu_torch.kernels import _build, warp_correlate, warp_vjp  # noqa: E402
+from mvster_tpu_torch.kernels import _build, sinkhorn_ot, warp_correlate, warp_vjp  # noqa: E402
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig  # noqa: E402
 from mvster_tpu_torch.tools.test import infer_views  # noqa: E402
 from mvster_tpu_torch.tools.weights import (  # noqa: E402
@@ -91,6 +114,10 @@ K2 = dict(name="warp_gather", route="cuda", source="mvster_tpu_torch/csrc/warp_s
           replaces="mvster_tpu/kernels/pallas_warp.py:568")
 K3 = dict(name="warp_scatter", route="cuda", source="mvster_tpu_torch/csrc/warp_scatter.cu",
           replaces="mvster_tpu/kernels/pallas_scatter.py:89")
+K4 = dict(name="sinkhorn_fwd", route="cuda", source="mvster_tpu_torch/csrc/sinkhorn_ot.cu",
+          replaces="mvster_tpu/kernels/pallas_sinkhorn.py:71")
+K5 = dict(name="sinkhorn_bwd", route="cuda", source="mvster_tpu_torch/csrc/sinkhorn_ot.cu",
+          replaces="mvster_tpu/kernels/pallas_sinkhorn.py:82")
 BATCH = 2  # the training cell's batch
 K2_ATOL = 1e-6  # K2 repeats the plain version's rounded operations
 K3_RTOL, K3_ATOL = 1e-4, 1e-5  # K3's atomics sum in no fixed order
@@ -99,10 +126,35 @@ TRAIN_FLAGS = ["--batch_size", str(BATCH), "--nviews", str(NVIEWS), "--epochs", 
                "--group_cor", "--inverse_depth", "--mono", "--attn_temp", "2",
                "--summary_freq", "1"]
 LOSS_KW = dict(inverse_depth=True, ot_iter=10, mono=True)  # l1ot_lw (0, 1)
+OT_ITERS = 10
+K4_RTOL, K4_ATOL = 1e-5, 1e-6  # per-pixel loss: the plain version's steps, own exp/log
+# K5: rtol, and an absolute floor as a fraction of the largest |dL/dpred|
+# (where pred underflows to 0, dL/dpred = dlog_nu / 1e-12 magnifies rounding)
+K5_RTOL, K5_FLOOR = 1e-4, 1e-4
+# the BlendedMVS fine-tune (SURVEY.md: 768x576, 7 views), batch 2
+BLEND_H, BLEND_W, BLEND_VIEWS = 576, 768, 7
+BLEND_FLAGS = ["--dataset", "blendedmvs", "--ot_backend", "pallas", "--nviews",
+               str(BLEND_VIEWS), "--batch_size", str(BATCH), "--epochs", "1",
+               "--group_cor", "--inverse_depth", "--mono", "--attn_temp", "2",
+               "--summary_freq", "1"]
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores
+# float32 FLOP/s outside the tensor cores; per clock and SM, its float32
+# pipe starts 128 FFMA, FADD or FMUL and its special-function units (MUFU:
+# ex2, rcp) 16
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+FMA_PER_CLOCK_PER_SM = 128
+MUFU_PER_CLOCK_PER_SM = 16
+# one accurate expf, logf and float32 division each, compiled as the port's
+# kernels are (math_costs counts their SASS)
+MATH_PROBE = r"""
+#define PROBE(name, expr) extern "C" __global__ void name(const float* x, float* y) \
+  { const int i = threadIdx.x; y[i] = expr; }
+PROBE(probe_none, x[i])
+PROBE(probe_exp, expf(x[i]))
+PROBE(probe_log, logf(x[i]))
+PROBE(probe_div, x[i] / x[i + 32])
+"""
 
 
 def log(msg):
@@ -283,7 +335,7 @@ def phase8_train(dev, tmp, card):
         f"{len(params)} parameter tensors moved (the mono decoder's, weighted 0, did "
         f"not); the checkpoint loaded strictly and served a request through "
         f"{k1} K1 launches in {1e3 * served[0][1]['seconds']:.2f} ms | {card}")
-    return k2, k3, root
+    return k2, k3, root, result["checkpoint"]
 
 
 def phase9_card_vs_cpu(dev):
@@ -373,23 +425,14 @@ def phase10_learns(dev):
 
 def phase11_times(dev, root, per_stage, card):
     """The train step's time, peak memory and profile; K2/K3 per stage."""
-    from mvster_tpu_torch.data import MVSLoader
-    from mvster_tpu_torch.data.dtu import DTUDataset
-    from mvster_tpu_torch.train.loop import device_batch
+    from mvster_tpu_torch.models.losses import mvs4net_loss
 
-    config = MVS4NetConfig.dtu_default()
-    model = MVS4Net(config)
-    model.load_state_dict(init_state_dict(model, seed=1), strict=True)
-    model.to(dev)
-    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
-                           loss_kwargs=LOSS_KW)
-    ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
-    batch = device_batch(next(iter(MVSLoader(ds, BATCH, prefetch=0))), dev)
+    step = train_step_fn(dev, mvs4net_loss, "xla", dtu_batch(root, dev))
     for _ in range(2):
-        step(batch)
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(lambda: step(batch), iters=5, warmup=0)
+    step_ms = cuda_ms(step, iters=5, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     log(f"[11 times] train step {step_ms:.2f} ms (DTU-mid {H}x{W}, {NVIEWS} views, "
         f"batch {BATCH}, f32, mean of 5 after 2 warm-up, CUDA events); peak memory "
@@ -399,7 +442,7 @@ def phase11_times(dev, root, per_stage, card):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            step(batch)
+            step()
         torch.cuda.synchronize()
     # the kernels' own events (device type CUDA), summed by name
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
@@ -453,6 +496,370 @@ def phase11_times(dev, root, per_stage, card):
             f"bound {b2:.4f}); K3 {ms['k3']:.4f} ms (plain {ms['p3']:.4f}, grid_sample "
             f"backward {ms['gs_b']:.4f}, bound {b3:.4f}); {nbytes / 1e6:.1f} MB | {card}")
     return sums, by2, by3
+
+
+def clock_rates():
+    """(float32-pipe, MUFU) instructions per second: the per-clock, per-SM
+    rates x the card's SMs x the maximum SM clock that nvidia-smi reports;
+    and the SMs and MHz."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_s = sms * mhz * 1e6
+    return (FMA_PER_CLOCK_PER_SM * per_s, MUFU_PER_CLOCK_PER_SM * per_s), sms, mhz
+
+
+def math_costs(tmp):
+    """{"exp" | "log" | "div": (float32-pipe, MUFU) instructions} of one
+    accurate expf, logf and float32 division on sm_90a: MATH_PROBE built with
+    the port's nvcc architecture and -O3, its SASS (cuobjdump -sass) counted
+    up to each probe's first EXIT (the fast path: the division's slow-path
+    subroutine lies after it), less the copy-only probe's."""
+    src, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(MATH_PROBE)
+    nvcc = _build._nvcc()
+    subprocess.run([nvcc, *_build.NVCC_FLAGS[:4], "-cubin", "-o", cubin, src], check=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, fma, mufu = part.split()[0], 0, 0
+        for line in part.splitlines()[1:]:
+            words = line.split("*/", 1)[-1].split()
+            words = words[1:] if words and words[0].startswith("@") else words
+            if not words or not line.strip().startswith("/*"):
+                continue
+            op = words[0].split(".")[0]
+            if op == "EXIT":
+                break
+            fma += op in ("FFMA", "FADD", "FMUL")
+            mufu += op == "MUFU"
+        counts[name] = (fma, mufu)
+    none = counts["probe_none"]
+    return {k: (counts[f"probe_{k}"][0] - none[0], counts[f"probe_{k}"][1] - none[1])
+            for k in ("exp", "log", "div")}
+
+
+def ot_work(n, d, costs, iters=OT_ITERS):
+    """K4's and K5's least work for n pixels of D bins, counted from
+    csrc/sinkhorn_ot.cu: (float32-pipe instructions, MUFU instructions,
+    bytes).  Per pixel each counts its expf, logf and divisions at `costs`
+    (math_costs) and the adds and multiplies written in the source, a
+    multiply-add as one FFMA and a sum of D terms as D - 1 adds:
+      K4: D logs and D divisions for the marginals and S; an iteration 2 D^2
+          exp and 2 D log, 6 D^2 + 2 D adds; the loss D^2 exp and 3 D^2 + D;
+          reads D + 1 words and writes 1.
+      K5: the replay as K4; the plan D^2 exp and 4 D^2 + 3 D; each of the
+          iters steps of the reverse sweep a softmax over rows (D^2 exp and
+          D^2 divisions, 4 D^2 + D), each but the last one over columns too
+          (the same, 4 D^2 - D); D divisions and D adds for dL/dpred; reads
+          pred, gt_idx and g and writes dpred (2 D + 2 words)."""
+    def total(explicit, n_exp, n_log, n_div):
+        fma = explicit + sum(k * costs[op][0] for k, op in
+                             ((n_exp, "exp"), (n_log, "log"), (n_div, "div")))
+        mufu = sum(k * costs[op][1] for k, op in ((n_exp, "exp"), (n_log, "log"), (n_div, "div")))
+        return n * fma, n * mufu
+
+    sq, sweep = d * d, 2 * iters - 1  # softmaxes in the reverse sweep
+    replay = d + iters * (6 * sq + 2 * d)
+    k4 = total(replay + 3 * sq + d, iters * 2 * sq + sq, d + iters * 2 * d, d)
+    k5 = total(replay + 4 * sq + 3 * d + iters * (4 * sq + d) + (iters - 1) * (4 * sq - d) + d,
+               iters * 2 * sq + sq + sweep * sq, d + iters * 2 * d, d + sweep * sq + d)
+    return (*k4, 4 * n * (d + 2)), (*k5, 4 * n * (2 * d + 2))
+
+
+def ot_bound(fma, mufu, nbytes, rates):
+    """(ms, "bytes" | "operations"): the least time for the float32-pipe and
+    MUFU instructions at the card's instruction rates (clock_rates) and the bytes
+    at 3.35 TB/s."""
+    by_ops = max(fma / rates[0], mufu / rates[1]) * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ot_inputs(seed, h, w, d, dev, b=BATCH):
+    """gt (B, H, W), hypotheses inverse-uniform over [425, 935] with a +-5%
+    per-pixel jitter and a softmax attention (B, D, H, W), mask (B, H, W)
+    bool with 80% of the pixels valid, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    inv = 1.0 / 935.0 + (1.0 / 425.0 - 1.0 / 935.0) * np.arange(d) / (d - 1)
+    hypo = (1.0 / inv)[None, :, None, None] * rng.uniform(0.95, 1.05, size=(b, d, h, w))
+    logits = rng.normal(size=(b, d, h, w)) * 3.0
+    attn = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    gt = rng.uniform(440, 920, size=(b, h, w))
+    mask = torch.from_numpy(rng.uniform(size=(b, h, w)) > 0.2).to(dev)
+    return t(gt, dev), t(hypo, dev), t(attn, dev), mask
+
+
+def _assert_dpred_close(got, want):
+    torch.testing.assert_close(got, want, rtol=K5_RTOL,
+                               atol=K5_FLOOR * want.abs().max().item())
+
+
+def phase12_sinkhorn(dev):
+    """K4 and K5 against their plain versions at the DTU-mid stage shapes,
+    batch 2; returns the max errors and each stage's inputs for phase 15."""
+    err4 = err5 = errf = 0.0
+    per_stage = []
+    for si, (h, w, _, d, _) in enumerate(STAGES):
+        gt, hypo, attn, mask = ot_inputs(400 + si, h, w, d, dev)
+        pred = attn.reshape(BATCH, d, h * w)
+        gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(BATCH, h * w).int()
+        m = mask.reshape(BATCH, h * w).float()
+        g = m / m.sum().clamp(min=1.0)
+        loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
+        dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
+        want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
+        dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
+            raise AssertionError(f"stage{si + 1}: non-finite K4/K5 output")
+        torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
+        _assert_dpred_close(dpred, dwant)
+        err4 = max(err4, (loss - want).abs().max().item())
+        err5 = max(err5, (dpred - dwant).abs().max().item())
+        a, b = attn.clone().requires_grad_(), attn.clone().requires_grad_()
+        sinkhorn_ot.sinkhorn_loss_fused(gt, hypo, a, mask, OT_ITERS).backward()
+        per_pixel = sinkhorn_ot.sinkhorn_pixels_plain(b.reshape(BATCH, d, h * w), gt_idx,
+                                                      OT_ITERS)
+        ((per_pixel * m).sum() / m.sum().clamp(min=1.0)).backward()
+        _assert_dpred_close(a.grad, b.grad)
+        errf = max(errf, (a.grad - b.grad).abs().max().item())
+        per_stage.append((gt, hypo, attn, mask, pred, gt_idx, g))
+    log(f"[12 kernels K4/K5] {len(STAGES)} stages, batch {BATCH}, {OT_ITERS} iterations: "
+        f"K4 vs plain max|d| {err4:.3e} (rtol {K4_RTOL}, atol {K4_ATOL}), K5 vs plain "
+        f"max|d| {err5:.3e} (rtol {K5_RTOL}, atol {K5_FLOOR} x max|dL/dpred|), Function "
+        f"attn.grad vs plain autograd max|d| {errf:.3e}")
+    return err4, err5, per_stage
+
+
+def _reset_counts():
+    for fn in (sinkhorn_ot.sinkhorn_fwd, sinkhorn_ot.sinkhorn_bwd, warp_vjp.warp_gather,
+               warp_vjp.scatter_grad, warp_correlate.fused_cost_volume):
+        fn.launches = 0
+
+
+def phase13_finetune(dev, tmp, ckpt, card):
+    """The BlendedMVS fine-tune through tools.train.main from phase 8's
+    checkpoint: the path of the fused Sinkhorn kernels."""
+    from mvster_tpu_torch.tools import train
+
+    root = os.path.join(tmp, "blendedmvs")
+    t0 = time.perf_counter()
+    write_blendedmvs_tree(root, n_views=BLEND_VIEWS, h=BLEND_H, w=BLEND_W)
+    tree_s = time.perf_counter() - t0
+    logdir = os.path.join(tmp, "log_blend")
+    argv = ["--trainpath", root, "--trainlist", f"{root}/train.txt", "--testlist",
+            f"{root}/train.txt", "--logdir", logdir, "--loadckpt", ckpt, *BLEND_FLAGS]
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in (
+        ("K1", warp_correlate.fused_cost_volume), ("K2", warp_vjp.warp_gather),
+        ("K3", warp_vjp.scatter_grad), ("K4", sinkhorn_ot.sinkhorn_fwd),
+        ("K5", sinkhorn_ot.sinkhorn_bwd))}
+    steps = result["steps"]
+    val_batches = -(-BLEND_VIEWS // BATCH)  # one sample per reference view
+    views = 4 * (BLEND_VIEWS - 1)
+    expect = dict(K1=4 * val_batches, K2=views * steps, K3=views * steps,
+                  K4=4 * steps + 4 * val_batches, K5=4 * steps)
+    if steps != BLEND_VIEWS // BATCH or launches != expect:
+        raise AssertionError(f"{steps} steps, launches {launches}, expected {expect}")
+    records = _jsonl(os.path.join(logdir, "metrics.jsonl"))
+    for r in records:
+        for key in ("loss", "epe", "err1", "err3"):
+            if not np.isfinite(r[key]):
+                raise AssertionError(f"{r['mode']} {key} = {r[key]}")
+    train_recs = [r for r in records if r["mode"] == "train"]
+    val = [r for r in records if r["mode"] == "fulltest"]
+    if len(train_recs) != steps or len(val) != 1:
+        raise AssertionError(f"{len(train_recs)} train and {len(val)} val records")
+    config = MVS4NetConfig.dtu_default()
+    start = load_reference_ckpt(ckpt, config)
+    tuned = load_reference_ckpt(result["checkpoint"], config)
+    params = {name for name, _ in MVS4Net(config).named_parameters()}
+    moved = {k for k in params if not torch.equal(tuned[k], start[k])}
+    expect_moved = {k for k in params if not k.startswith("mono_depth_decoder.")}
+    if moved != expect_moved:
+        raise AssertionError(f"moved parameters differ: {sorted(moved ^ expect_moved)[:8]}")
+    log(f"[13 fine-tune] tools.train.main --dataset blendedmvs --ot_backend pallas from "
+        f"phase 8's checkpoint: {steps} steps of batch {BATCH} at {BLEND_H}x{BLEND_W}, "
+        f"{BLEND_VIEWS} views + a val pass of {val_batches} batches in {train_s:.1f} s "
+        f"(tree written in {tree_s:.1f} s); loss {train_recs[0]['loss']:.3f} -> "
+        f"{train_recs[-1]['loss']:.3f}, EPE {train_recs[-1]['epe']:.3f}, err1 "
+        f"{train_recs[-1]['err1']:.2f}%, err3 {train_recs[-1]['err3']:.2f}%; val loss "
+        f"{val[0]['loss']:.3f}, EPE {val[0]['epe']:.3f}; launches {launches} (per step "
+        f"4 K4, 4 K5, {views} K2, {views} K3; per val batch 4 K1, 4 K4); {len(moved)} of "
+        f"{len(params)} parameter tensors moved | {card}")
+    return launches, root
+
+
+@contextlib.contextmanager
+def plain_warp():
+    """Within: the training cost volume gathers with the plain warp (autograd
+    through warp_plain), which takes any dtype: the float64 reference step."""
+    kernel = warp_vjp.grid_sample_zeros_vjp
+    warp_vjp.grid_sample_zeros_vjp = warp_vjp.warp_plain
+    try:
+        yield
+    finally:
+        warp_vjp.grid_sample_zeros_vjp = kernel
+
+
+def dtu_batch(root, dev):
+    """The first batch of the DTU tree's training loader, on the device."""
+    from mvster_tpu_torch.data import MVSLoader
+    from mvster_tpu_torch.data.dtu import DTUDataset
+    from mvster_tpu_torch.train.loop import device_batch
+
+    ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
+    return device_batch(next(iter(MVSLoader(ds, BATCH, prefetch=0))), dev)
+
+
+def phase14_backends(dev, root):
+    """ot_backend pallas against xla on one DTU-mid train step."""
+    config = MVS4NetConfig.dtu_default()
+    sd = init_state_dict(MVS4Net(config), seed=1)
+    batch = dtu_batch(root, dev)
+    runs = {}
+    for name, backend, dtype in (("pallas", "pallas", torch.float32),
+                                 ("xla", "xla", torch.float32),
+                                 ("exact", "xla", torch.float64)):
+        model = MVS4Net(config)
+        model.load_state_dict(sd, strict=True)
+        model.to(device=dev, dtype=dtype)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                               loss_kwargs=dict(LOSS_KW, ot_backend=backend))
+        b = batch
+        if dtype == torch.float64:
+            b = {k: ({s: x.double() for s, x in v.items()} if isinstance(v, dict)
+                     else v.double()) for k, v in batch.items()}
+            with plain_warp():
+                scalars, _ = step(b)
+        else:
+            scalars, _ = step(b)
+        runs[name] = dict(ot=[float(scalars[f"s{i}_c_loss"]) for i in range(4)],
+                          grads={k: p.grad.double().cpu().numpy()
+                                 for k, p in model.named_parameters()})
+        del model, step
+        torch.cuda.empty_cache()
+    np.testing.assert_allclose(runs["pallas"]["ot"], runs["xla"]["ot"], rtol=1e-5)
+    worst, worst_key, checked = 0.0, "", 0
+    for key, g_x in runs["xla"]["grads"].items():
+        g_p, g_e = runs["pallas"]["grads"][key], runs["exact"]["grads"][key]
+        if np.linalg.norm(g_e) < GRAD_NOISE:  # zero in exact arithmetic
+            np.testing.assert_allclose(g_p, g_x, atol=GRAD_NOISE, err_msg=key)
+            continue
+        # check_grads' rule: each float32 gradient as close to the float64
+        # one as the other's (within 10x, or 1e-4), and the two within 1.5x
+        # their summed float32 noise (or 1e-4)
+        e_p, e_x = relative_l2(g_p, g_e), relative_l2(g_x, g_e)
+        rel = relative_l2(g_p, g_x)
+        if (e_p > max(1e-4, 10 * e_x) or e_x > max(1e-4, 10 * e_p)
+                or rel > max(1e-4, 1.5 * (e_p + e_x))):
+            raise AssertionError(f"{key}: pallas vs xla relative L2 {rel:.2e}; against "
+                                 f"float64 pallas {e_p:.2e}, xla {e_x:.2e}")
+        checked += 1
+        if rel > worst:
+            worst, worst_key = rel, key
+    log(f"[14 backends] DTU-mid train step, batch {BATCH}: per-stage OT loss pallas "
+        + ", ".join(f"{p:.6f}" for p in runs["pallas"]["ot"]) + " vs xla "
+        + ", ".join(f"{x:.6f}" for x in runs["xla"]["ot"]) + f" (rtol 1e-5); {checked} "
+        f"gradient tensors within their float32 noise of a float64 step: worst pallas vs "
+        f"xla relative L2 {worst:.2e} ({worst_key})")
+    return batch
+
+
+def train_step_fn(dev, loss_fn, backend, batch):
+    """A train step of dtu_default() from tools.train's initial weights
+    (seed 1), Adam at 1e-3, on `batch`: called with no arguments."""
+    config = MVS4NetConfig.dtu_default()
+    model = MVS4Net(config)
+    model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+    model.to(dev)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), loss_fn,
+                           dict(LOSS_KW, ot_backend=backend))
+    return lambda: step(batch)
+
+
+def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
+    """K4/K5 per stage against plain and the xla backend; the train steps."""
+    from mvster_tpu_torch.data import MVSLoader
+    from mvster_tpu_torch.data.blendedmvs import BlendedMVSDataset
+    from mvster_tpu_torch.models.losses import _sinkhorn_loss, blend_loss, mvs4net_loss
+    from mvster_tpu_torch.train.loop import device_batch
+
+    sums = dict(k4=0.0, k5=0.0, p4=0.0, p5=0.0, xla=0.0, fused=0.0, b4=0.0, b5=0.0)
+    by4 = by5 = "operations"
+    for si, (gt, hypo, attn, mask, pred, gt_idx, g) in enumerate(per_stage):
+        h, w, _, d, _ = STAGES[si]
+        a = attn.clone().requires_grad_()
+
+        def loss_fb(backend):
+            def run():
+                _sinkhorn_loss(gt, hypo, a, mask, OT_ITERS, 1.0, False, backend).backward()
+            return run
+
+        fns = dict(
+            k4=lambda: sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS),
+            k5=lambda: sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS),
+            p4=lambda: sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS),
+            p5=lambda: sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS),
+            xla=loss_fb("xla"), fused=loss_fb("pallas"),
+        )
+        order = ["p4", "k4", "p5", "k5", "xla", "fused"]
+        times = {k: [] for k in fns}
+        for name in order + order[::-1]:
+            times[name].append(cuda_ms(fns[name], iters=10))
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        (f4, s4, n4), (f5, s5, n5) = ot_work(BATCH * h * w, d, costs)
+        b4, by4 = ot_bound(f4, s4, n4, rates)
+        b5, by5 = ot_bound(f5, s5, n5, rates)
+        for k in ms:
+            sums[k] += ms[k]
+        sums["b4"] += b4
+        sums["b5"] += b5
+        log(f"[15 times] stage{si + 1} {(h, w)} D={d} B={BATCH}: K4 {ms['k4']:.4f} ms (plain "
+            f"{ms['p4']:.4f}, bound {b4:.4f} by {by4}: {f4:.4e} float32-pipe and {s4:.4e} "
+            f"MUFU instructions); K5 {ms['k5']:.4f} ms (plain {ms['p5']:.4f}, bound {b5:.4f}: "
+            f"{f5:.4e} float32-pipe, {s5:.4e} MUFU); loss forward+backward: pallas (K4+K5) "
+            f"{ms['fused']:.4f} ms, xla (checkpointed plain) {ms['xla']:.4f} ms | {card}")
+    log(f"[15 times] over the four stages: K4 {sums['k4']:.4f} ms (plain {sums['p4']:.4f}, "
+        f"bound {sums['b4']:.4f}), K5 {sums['k5']:.4f} ms (plain {sums['p5']:.4f}, bound "
+        f"{sums['b5']:.4f}); loss forward+backward pallas {sums['fused']:.4f} ms vs xla "
+        f"{sums['xla']:.4f} ms | {card}")
+
+    steps = {b: train_step_fn(dev, mvs4net_loss, b, dtu) for b in ("xla", "pallas")}
+    for fn in steps.values():
+        fn()
+        fn()
+    step_ms = {b: [] for b in steps}
+    for b in ("xla", "pallas", "pallas", "xla"):
+        step_ms[b].append(cuda_ms(steps[b], iters=5, warmup=0))
+    del steps
+    torch.cuda.empty_cache()
+    log(f"[15 times] DTU-mid train step, batch {BATCH} (mean of 5, in turns xla, pallas, "
+        f"pallas, xla): pallas " + " / ".join(f"{x:.2f}" for x in step_ms["pallas"])
+        + " ms, xla " + " / ".join(f"{x:.2f}" for x in step_ms["xla"]) + f" ms | {card}")
+
+    ds = BlendedMVSDataset(blend_root, f"{blend_root}/train.txt", "train", BLEND_VIEWS,
+                           robust_train=False)
+    batch = device_batch(next(iter(MVSLoader(ds, BATCH, prefetch=0))), dev)
+    blend = train_step_fn(dev, blend_loss, "pallas", batch)
+    blend()
+    blend()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend_ms = cuda_ms(blend, iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[15 times] BlendedMVS train step ({BLEND_H}x{BLEND_W}, {BLEND_VIEWS} views, batch "
+        f"{BATCH}, blend_loss, pallas, mean of 3 after 2 warm-up) {blend_ms:.2f} ms; peak "
+        f"memory {peak / 2**30:.3f} GiB | {card}")
+    return sums, by4, by5
 
 
 def main():
@@ -584,13 +991,25 @@ def main():
         + ", ".join(f"s{i + 1} {b * 1e3:.1f} us by {by}" for i, (b, by) in enumerate(k1_bounds))
         + ")")
 
-    # 7-11: the training path
+    # 7-11: the training path; 12-15: the fused Sinkhorn loss and the
+    # BlendedMVS fine-tune
     err2, err3, per_stage = phase7_kernels(dev)
+    err4, err5, ot_stages = phase12_sinkhorn(dev)
+    rates, sms, mhz = clock_rates()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        k2_launches, k3_launches, root = phase8_train(dev, tmp, card)
+        costs = math_costs(tmp)
+        k2_launches, k3_launches, root, ckpt = phase8_train(dev, tmp, card)
         phase9_card_vs_cpu(dev)
         phase10_learns(dev)
         sums, by2, by3 = phase11_times(dev, root, per_stage, card)
+        ft_launches, blend_root = phase13_finetune(dev, tmp, ckpt, card)
+        dtu = phase14_backends(dev, root)
+        ot_sums, by4, by5 = phase15_times(dev, ot_stages, dtu, blend_root, card, rates, costs)
+    log(f"[15 times] K4/K5 bounds at {FMA_PER_CLOCK_PER_SM} float32-pipe and "
+        f"{MUFU_PER_CLOCK_PER_SM} MUFU instructions a clock x {sms} SMs x {mhz:.0f} MHz "
+        f"(nvidia-smi's maximum SM clock) = {rates[0]:.4e} and {rates[1]:.4e} per s; "
+        f"(float32-pipe, MUFU) instructions from SASS: " + ", ".join(
+            f"{k} {v}" for k, v in costs.items()))
 
     print(card)
     print(json.dumps({"kernels": [
@@ -603,6 +1022,12 @@ def main():
         dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["k3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["gs_b"]),
+        dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["k4"],
+             plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
+             library_ms=None),
+        dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["k5"],
+             plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
+             library_ms=None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -103,6 +103,27 @@ def build() -> Path:
     return lib_path
 
 
+def check_tensor(name, t, device, dtype, shape=None) -> None:
+    """Raise ValueError unless t lies on `device` as a contiguous `dtype`
+    tensor (of `shape`, where given), as a kernel's raw pointer needs it."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, fn_name: str) -> None:
+    """Raise RuntimeError for the nonzero cudaGetLastError() code that a C
+    function of the library returned."""
+    if rc != 0:
+        msg = lib.mvster_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn_name} kernel launch failed: {msg} ({rc})")
+
+
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once, and declare the C functions' signatures."""
     global _lib
@@ -124,6 +145,19 @@ def load_library() -> ctypes.CDLL:
                 p,                      # cudaStream_t
             ]
             fn.restype = i
+        lib.mvster_sinkhorn_fwd.argtypes = [
+            p, p, p,                    # pred, gt_idx, loss
+            i, i, i, i, f,              # B, N, D, iters, eps
+            p,                          # cudaStream_t
+        ]
+        lib.mvster_sinkhorn_fwd.restype = i
+        lib.mvster_sinkhorn_bwd.argtypes = [
+            p, p, p, p,                 # pred, gt_idx, g, dpred
+            i, i, i, i, f,              # B, N, D, iters, eps
+            i, i,                       # threads per block, shared-memory bytes
+            p,                          # cudaStream_t
+        ]
+        lib.mvster_sinkhorn_bwd.restype = i
         lib.mvster_cuda_error_string.argtypes = [i]
         lib.mvster_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

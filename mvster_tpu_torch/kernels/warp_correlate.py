@@ -91,7 +91,7 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
            attn_fuse_d):
     """Check the inputs, launch the kernel on the current stream and return
     its (B, D, H, W, G) output; rot/trans as plane_sweep_rts gives them."""
-    from mvster_tpu_torch.kernels._build import load_library
+    from mvster_tpu_torch.kernels._build import load_library, raise_on_error
 
     _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim)
     lib = load_library()
@@ -108,9 +108,7 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
             b, v, d, h, w, c, group_dim, int(bool(attn_fuse_d)),
             float(attn_temp), math.sqrt(c), stream,
         )
-    if rc != 0:
-        msg = lib.mvster_cuda_error_string(rc).decode()
-        raise RuntimeError(f"warp_correlate kernel launch failed: {msg} ({rc})")
+    raise_on_error(lib, rc, "mvster_warp_correlate")
     fused_cost_volume.launches += 1
     return out
 

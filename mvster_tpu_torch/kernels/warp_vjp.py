@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from mvster_tpu_torch.core.sampling import bilinear_taps, grid_sample_zeros
+from mvster_tpu_torch.kernels._build import check_tensor, load_library, raise_on_error
 
 warp_plain = grid_sample_zeros
 
@@ -45,21 +46,8 @@ def scatter_grad_plain(cot: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return dsrc.reshape(b, h, w, c)
 
 
-def _check(name, t, device, shape=None):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
 def _launch(fn_name, data, x, y, out, src_shape):
     """Launch mvster_warp_gather or mvster_warp_scatter on the current stream."""
-    from mvster_tpu_torch.kernels._build import load_library
-
     lib = load_library()
     b, h, w, c = src_shape
     n = x.numel() // b
@@ -68,17 +56,15 @@ def _launch(fn_name, data, x, y, out, src_shape):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(data.data_ptr(), x.data_ptr(), y.data_ptr(),
                                    out.data_ptr(), b, n, h, w, c, vec4, stream)
-    if rc != 0:
-        msg = lib.mvster_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{fn_name} kernel launch failed: {msg} ({rc})")
+    raise_on_error(lib, rc, fn_name)
 
 
 def _check_coords(x, y, b, device):
     if x.shape != y.shape or x.dim() < 2 or x.shape[0] != b:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must share "
                          f"one shape (B={b}, ...)")
-    _check("x", x, device)
-    _check("y", y, device)
+    check_tensor("x", x, device, torch.float32)
+    check_tensor("y", y, device, torch.float32)
 
 
 def warp_gather(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -89,7 +75,7 @@ def warp_gather(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Te
         raise ValueError(f"no kernel for device {src.device}")
     if src.dim() != 4:
         raise ValueError(f"src must be (B, H, W, C), got {tuple(src.shape)}")
-    _check("src", src, src.device)
+    check_tensor("src", src, src.device, torch.float32)
     _check_coords(x, y, src.shape[0], src.device)
     out = torch.empty(tuple(x.shape) + (src.shape[-1],), dtype=torch.float32,
                       device=src.device)
@@ -109,7 +95,7 @@ def scatter_grad(cot: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if len(src_shape) != 4:
         raise ValueError(f"src_shape must be (B, H, W, C), got {src_shape}")
     _check_coords(x, y, src_shape[0], cot.device)
-    _check("cot", cot, cot.device, tuple(x.shape) + (src_shape[-1],))
+    check_tensor("cot", cot, cot.device, torch.float32, tuple(x.shape) + (src_shape[-1],))
     dsrc = torch.zeros(src_shape, dtype=torch.float32, device=cot.device)
     _launch("mvster_warp_scatter", cot, x, y, dsrc, src_shape)
     scatter_grad.launches += 1

@@ -14,20 +14,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mvster_tpu_torch.core.sinkhorn import sinkhorn
+from mvster_tpu_torch.kernels.sinkhorn_ot import sinkhorn_loss_fused
 
 
 def _sinkhorn_loss(gt, hypo, attn, mask, iters, eps, continuous, backend="xla"):
-    """The Sinkhorn loss, recomputed in the backward instead of keeping the
-    iterations' (B, HW, D, D) residuals, as the JAX package's jax.checkpoint.
-    The JAX package's ot_backend="pallas" (discrete OT only) runs the fused
-    kernels K4/K5, which the port does not have yet: it raises, it does not
-    fall back."""
+    """The Sinkhorn loss.  ot_backend="pallas" with discrete OT runs the
+    fused kernels K4 (forward) and K5 (backward) of kernels/sinkhorn_ot.py,
+    as the JAX package runs its Pallas pair; otherwise the plain iterations
+    are recomputed in the backward instead of keeping their (B, HW, D, D)
+    residuals, as the JAX package's jax.checkpoint."""
     if backend == "pallas" and not continuous:
-        raise NotImplementedError(
-            "ot_backend='pallas' needs the fused Sinkhorn kernels K4/K5 "
-            "(mvster_tpu/kernels/pallas_sinkhorn.py _fwd_kernel/_bwd_kernel), "
-            "which are not ported yet; use ot_backend='xla'"
-        )
+        return sinkhorn_loss_fused(gt, hypo, attn, mask, iters, eps)
     return checkpoint(
         lambda g, h, a, m: sinkhorn(g, h, a, m, iters=iters, eps=eps,
                                     continuous=continuous)[1],

@@ -124,11 +124,12 @@ def loss_kwargs_from_args(args, mono: bool) -> dict:
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="mvster_tpu_torch training tool: one process on one "
-                    "device (DTU; data parallelism is not ported yet)",
+                    "device (DTU, or the BlendedMVS fine-tune; data "
+                    "parallelism is not ported yet)",
     )
     p.add_argument("--mode", default="train", choices=["train", "profile"],
                    help="profile: a torch.profiler trace of 3 train steps")
-    p.add_argument("--dataset", default="dtu", choices=["dtu", "dtu_yao4"])
+    p.add_argument("--dataset", default="dtu", choices=["dtu", "dtu_yao4", "blendedmvs"])
     p.add_argument("--trainpath", required=True)
     p.add_argument("--testpath", default=None)
     p.add_argument("--trainlist", required=True)
@@ -155,8 +156,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--ot_iter", type=int, default=10)
     p.add_argument("--ot_eps", type=float, default=1)
     p.add_argument("--ot_backend", default="xla", choices=["xla", "pallas"],
-                   help="pallas needs the fused Sinkhorn kernels, not ported "
-                        "yet: it raises")
+                   help="pallas: the fused Sinkhorn CUDA kernels K4/K5 for "
+                        "discrete OT (plain PyTorch on --device cpu); xla: "
+                        "the plain iterations, recomputed in the backward")
     p.add_argument("--rt", action="store_true")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="split each batch into N microbatches, accumulate "

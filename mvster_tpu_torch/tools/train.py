@@ -1,9 +1,17 @@
-"""Training tool: MVS4Net on DTU, one process on one device (counterpart of mvster_tpu.tools.train).
+"""Training tool: MVS4Net on DTU or BlendedMVS, one process on one device (counterpart of mvster_tpu.tools.train).
 
   python -m mvster_tpu_torch.tools.train --trainpath $DTU \\
       --trainlist lists/dtu/train.txt --testlist lists/dtu/val.txt \\
       --logdir checkpoints/exp --batch_size 2 --group_cor --inverse_depth \\
       --rt --mono --attn_temp 2
+
+The BlendedMVS fine-tune (768x576, blend_loss) starts from a DTU checkpoint:
+
+  python -m mvster_tpu_torch.tools.train --dataset blendedmvs \\
+      --trainpath $BLENDEDMVS --trainlist lists/blendedmvs/train.txt \\
+      --testlist lists/blendedmvs/val.txt --loadckpt $CKPT \\
+      --nviews 7 --batch_size 2 --group_cor --inverse_depth --mono \\
+      --attn_temp 2 --ot_backend pallas
 
 It runs on the card (`--device cuda`, the default) and raises where there
 is none, unless given `--device cpu`, which runs the kernels' plain
@@ -29,7 +37,7 @@ import torch
 
 from mvster_tpu_torch.data import MVSLoader, find_dataset_def
 from mvster_tpu_torch.dist.train_step import make_eval_step, make_train_step
-from mvster_tpu_torch.models.losses import mvs4net_loss
+from mvster_tpu_torch.models.losses import blend_loss, mvs4net_loss
 from mvster_tpu_torch.models.mvs4net import MVS4Net
 from mvster_tpu_torch.tools.cli import (
     build_train_parser,
@@ -46,17 +54,37 @@ from mvster_tpu_torch.utils.seeding import set_random_seed
 
 
 def build_datasets(args):
+    """(train, val) datasets: DTU, or BlendedMVS for the fine-tune (robust
+    training, `--rt`, for the train split only)."""
     dataset_cls = find_dataset_def(args.dataset)
-    train_ds = dataset_cls(
-        args.trainpath, args.trainlist, "train", args.nviews,
-        args.interval_scale, rt=args.rt, use_raw_train=args.use_raw_train,
-        seed=args.seed,
-    )
-    val_ds = dataset_cls(
-        args.testpath or args.trainpath, args.testlist, "val", args.nviews,
-        args.interval_scale,
-    )
+    if args.dataset.startswith("dtu"):
+        train_ds = dataset_cls(
+            args.trainpath, args.trainlist, "train", args.nviews,
+            args.interval_scale, rt=args.rt, use_raw_train=args.use_raw_train,
+            seed=args.seed,
+        )
+        val_ds = dataset_cls(
+            args.testpath or args.trainpath, args.testlist, "val", args.nviews,
+            args.interval_scale,
+        )
+    elif args.dataset.startswith("blendedmvs"):
+        train_ds = dataset_cls(
+            args.trainpath, args.trainlist, "train", args.nviews,
+            robust_train=args.rt, seed=args.seed,
+        )
+        val_ds = dataset_cls(
+            args.testpath or args.trainpath, args.testlist, "val", args.nviews,
+            robust_train=False,
+        )
+    else:
+        raise ValueError(f"unsupported training dataset {args.dataset}")
     return train_ds, val_ds
+
+
+def select_loss(dataset: str):
+    """blend_loss (adds the final stage's EPE, err1, err3) for BlendedMVS,
+    mvs4net_loss otherwise, for the train and the eval step alike."""
+    return blend_loss if dataset.startswith("blendedmvs") else mvs4net_loss
 
 
 def _profile(train_step, loader, device, logdir):
@@ -129,9 +157,10 @@ def main(argv=None):
         last_epoch=steps_per_epoch * start_epoch - 1,
     )
 
-    train_step = make_train_step(model, optimizer, mvs4net_loss, loss_kwargs,
+    loss_fn = select_loss(args.dataset)
+    train_step = make_train_step(model, optimizer, loss_fn, loss_kwargs,
                                  grad_accum=args.grad_accum, scheduler=scheduler)
-    eval_step = make_eval_step(model, mvs4net_loss, loss_kwargs)
+    eval_step = make_eval_step(model, loss_fn, loss_kwargs)
     result = {"steps": 0, "val": {}, "checkpoint": None}
     print(f"training: {len(train_ds)} samples, {steps_per_epoch} steps/epoch on {device}")
 

@@ -10,6 +10,7 @@ so a package named `tests` elsewhere on the path cannot shadow it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -228,6 +229,55 @@ def write_dtu_tree(root, n_views=4, n_scans=1, h=128, w=160, n_refs=None, seed=0
     return scans
 
 
+def write_blendedmvs_tree(root, n_views=4, h=576, w=768, seed=0):
+    """A synthetic BlendedMVS tree with one scan (tests/test_loaders_extra.py's
+    blended_tree, written with the port's PFM writer).
+
+    n_views cameras on a horizontal baseline (0.2 apart, focal 400 at
+    768 wide, full-resolution intrinsics as BlendedMVS's cam files hold
+    them), h x w JPEG images, depth uniform in [2, 8] and the depth line
+    "2.0 0.04 192 9.68", so the loader scales each scan by 100 / 2.
+    pair.txt lists every view as a reference with all others as sources.
+    Returns the scan name; `<root>/train.txt` lists it.
+    """
+    import os
+
+    import cv2
+
+    from mvster_tpu_torch.data.pfm import write_pfm
+
+    rng = np.random.default_rng(seed)
+    scan = "5b000000000000000000000000"
+    for sub in ("blended_images", "rendered_depth_maps", "cams"):
+        os.makedirs(f"{root}/{scan}/{sub}", exist_ok=True)
+    with open(f"{root}/{scan}/cams/pair.txt", "w") as f:
+        f.write(f"{n_views}\n")
+        for v in range(n_views):
+            srcs = [s for s in range(n_views) if s != v]
+            f.write(f"{v}\n{len(srcs)} ")
+            f.write(" ".join(f"{s} {100 - i}" for i, s in enumerate(srcs)) + "\n")
+    focal = 400.0 * w / 768
+    for v in range(n_views):
+        img = (rng.uniform(size=(h, w, 3)) * 255).astype(np.uint8)
+        cv2.imwrite(f"{root}/{scan}/blended_images/{v:08d}.jpg", img)
+        depth = rng.uniform(2.0, 8.0, size=(h, w)).astype(np.float32)
+        write_pfm(f"{root}/{scan}/rendered_depth_maps/{v:08d}.pfm", depth)
+        extr = np.eye(4)
+        extr[:3, 3] = [v * 0.2, 0, 0]
+        intr = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+        with open(f"{root}/{scan}/cams/{v:08d}_cam.txt", "w") as f:
+            f.write("extrinsic\n")
+            for row in extr:
+                f.write(" ".join(map(str, row)) + "\n")
+            f.write("\nintrinsic\n")
+            for row in intr:
+                f.write(" ".join(map(str, row)) + "\n")
+            f.write("\n2.0 0.04 192 9.68\n")
+    with open(f"{root}/train.txt", "w") as f:
+        f.write(scan + "\n")
+    return scan
+
+
 def relative_l2(got, want):
     """||got - want|| / ||want||, with 0 for two zero tensors."""
     num = float(np.linalg.norm(np.asarray(got, np.float64) - np.asarray(want, np.float64)))
@@ -235,10 +285,45 @@ def relative_l2(got, want):
     return num / den if den else num
 
 
-def train_step_pair(l1ot_lw, lr=1e-3, seed=0):
-    """One train step of dtu_default() at 64x64, 3 views, batch 2 (two
-    textured planes), in both packages from the same perturbed weights.
+@contextlib.contextmanager
+def relu_branch(masks, replay=False):
+    """torch.relu (which nn.ReLU and F.relu call too) that records each
+    call's side, x > 0, into the list `masks`; with `replay` it takes the
+    recorded sides in call order instead of the sign of x, so a step run
+    this way follows the ReLU branches of the recorded one.  Replay fails
+    if the steps make a different number of calls."""
+    relu = torch.relu
 
+    def record(x):
+        masks.append(x.detach() > 0)
+        return relu(x)
+
+    def apply(x):
+        return x * masks.pop(0).to(x.dtype)
+
+    torch.relu = apply if replay else record
+    try:
+        yield
+    finally:
+        torch.relu = relu
+    assert not (replay and masks), f"{len(masks)} recorded ReLU calls left over"
+
+
+def train_step_pair(l1ot_lw, lr=1e-3, seed=0, *, config=None, batch=None,
+                    loss="mvs4net_loss", loss_kwargs=None, interpret=False,
+                    branch=False):
+    """One train step in both packages from the same perturbed weights; by
+    default dtu_default() at 64x64, 3 views, batch 2 (two textured planes).
+
+    `config` (MVS4NetConfig fields for both packages, default
+    dtu_default()), `batch` (numpy), `loss` (the name of a loss in both
+    packages' models.losses) and `loss_kwargs` (default inverse depth, 10
+    Sinkhorn iterations, mono; l1ot_lw added) choose another step;
+    `interpret` runs the JAX step under pltpu.force_tpu_interpret_mode(),
+    so its Pallas kernels run in interpret mode on the CPU.  With `branch`
+    the port's step also runs in float64 on the ReLU branches that its
+    float32 step took (relu_branch): "branch_grads", the exact gradient of
+    the piecewise-linear function that the float32 step differentiated.
     JAX: make_train_step(jit=True) with optax.chain(record, adam(lr)), where
     `record` keeps the step's gradients in its state.  Port: the same
     weights through tools.weights.state_dict_from_jax, make_train_step with
@@ -250,58 +335,77 @@ def train_step_pair(l1ot_lw, lr=1e-3, seed=0):
     import jax
     import jax.numpy as jnp
     import optax
+    from jax.experimental.pallas import tpu as pltpu
 
     from mvster_tpu.dist.train_step import create_train_state
     from mvster_tpu.dist.train_step import make_train_step as jax_make_train_step
     from mvster_tpu.models import MVS4Net as JaxMVS4Net
     from mvster_tpu.models import MVS4NetConfig as JaxConfig
+    from mvster_tpu.models import losses as jax_losses
     from mvster_tpu_torch.dist.train_step import make_train_step
+    from mvster_tpu_torch.models import losses as port_losses
     from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig
     from mvster_tpu_torch.tools.convert import export_state_dict
     from mvster_tpu_torch.tools.weights import state_dict_from_jax
 
-    loss_kwargs = dict(inverse_depth=True, ot_iter=10, mono=True, l1ot_lw=l1ot_lw)
-    batch = plane_batch(2)
-    variables = jax_train_variables(JaxConfig.dtu_default(), batch, seed)
+    loss_kwargs = dict(loss_kwargs or dict(inverse_depth=True, ot_iter=10, mono=True),
+                       l1ot_lw=l1ot_lw)
+    batch = plane_batch(2) if batch is None else batch
+    jax_config = JaxConfig.dtu_default() if config is None else JaxConfig(**config)
+    port_config = (MVS4NetConfig.dtu_default() if config is None
+                   else MVS4NetConfig(**config))
+    jax_loss, port_loss = getattr(jax_losses, loss), getattr(port_losses, loss)
+    variables = jax_train_variables(jax_config, batch, seed)
 
     record = optax.GradientTransformation(
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda updates, state, params=None: (updates, updates),
     )
     tx = optax.chain(record, optax.adam(lr, b1=0.9, b2=0.999))
-    jax_step = jax_make_train_step(JaxMVS4Net(JaxConfig.dtu_default()), tx,
+    jax_step = jax_make_train_step(JaxMVS4Net(jax_config), tx, loss_fn=jax_loss,
                                    loss_kwargs=loss_kwargs, donate=False)
-    state, jax_scalars, _ = jax_step(create_train_state(variables, tx),
-                                     jax.tree_util.tree_map(jnp.asarray, batch))
+    mode = pltpu.force_tpu_interpret_mode() if interpret else contextlib.nullcontext()
+    with mode:
+        state, jax_scalars, _ = jax_step(create_train_state(variables, tx),
+                                         jax.tree_util.tree_map(jnp.asarray, batch))
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     jax_after = export_state_dict({"params": to_np(state.params),
                                    "batch_stats": to_np(state.batch_stats)})
     jax_grads = export_state_dict({"params": to_np(state.opt_state[0])})
 
-    model = MVS4Net(MVS4NetConfig.dtu_default())
+    model = MVS4Net(port_config)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    port_scalars, _ = make_train_step(model, optimizer, loss_kwargs=loss_kwargs)(
-        torch_batch(batch))
+    masks = []
+    with relu_branch(masks) if branch else contextlib.nullcontext():
+        port_scalars, _ = make_train_step(model, optimizer, port_loss, loss_kwargs)(
+            torch_batch(batch))
 
     # the same step in float64 (the Sinkhorn stays float32, as in both
     # packages): the exact gradient that both float32 gradients approximate
-    exact = MVS4Net(MVS4NetConfig.dtu_default())
-    exact.load_state_dict(state_dict_from_jax(variables), strict=True)
-    exact.double()
     f64 = lambda x: ({k: f64(v) for k, v in x.items()} if isinstance(x, dict)  # noqa: E731
                      else torch.from_numpy(np.asarray(x, np.float64)))
-    make_train_step(exact, torch.optim.SGD(exact.parameters(), lr=0.0),
-                    loss_kwargs=loss_kwargs)(f64(batch))
+
+    def float64_grads(context):
+        exact = MVS4Net(port_config)
+        exact.load_state_dict(state_dict_from_jax(variables), strict=True)
+        exact.double()
+        with context:
+            make_train_step(exact, torch.optim.SGD(exact.parameters(), lr=0.0), port_loss,
+                            loss_kwargs)(f64(batch))
+        return {k: p.grad.numpy().copy() for k, p in exact.named_parameters()}
+
+    extra = {"branch_grads": float64_grads(relu_branch(masks, replay=True))} if branch else {}
     return {
         "jax_scalars": {k: float(v) for k, v in jax_scalars.items()},
         "port_scalars": {k: float(v) for k, v in port_scalars.items()},
         "jax_grads": jax_grads,
         "port_grads": {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
-        "exact_grads": {k: p.grad.numpy().copy() for k, p in exact.named_parameters()},
+        "exact_grads": float64_grads(contextlib.nullcontext()),
         "jax_after": jax_after,
         "port_after": {k: v.numpy().copy() for k, v in model.state_dict().items()},
         "before": export_state_dict(variables),
+        **extra,
     }
 
 
@@ -311,11 +415,11 @@ def train_step_pair(l1ot_lw, lr=1e-3, seed=0):
 GRAD_NOISE = 1e-6
 
 
-def check_scalars(step):
+def check_scalars(step, rtol=1e-5):
     jax_s, port_s = step["jax_scalars"], step["port_scalars"]
     assert port_s.keys() == jax_s.keys()
     for key, want in jax_s.items():
-        np.testing.assert_allclose(port_s[key], want, rtol=1e-5, atol=1e-7, err_msg=key)
+        np.testing.assert_allclose(port_s[key], want, rtol=rtol, atol=1e-7, err_msg=key)
 
 
 def check_grads(step, mono_zero):
@@ -350,6 +454,31 @@ def check_grads(step, mono_zero):
         assert e_port <= max(1e-4, 10 * e_jax), (key, e_port, e_jax)
         assert relative_l2(got, want) <= max(1e-4, 1.5 * (e_port + e_jax)), (
             key, relative_l2(got, want), e_port, e_jax)
+
+
+def check_grads_by_branch(step, rtol=1e-3):
+    """Each gradient tensor against a float64 gradient of the port's step
+    (train_step_pair with branch=True), for a model narrow enough that a
+    float32 forward can land on the other side of a ReLU's kink.
+
+    At the narrow config of tests/test_blend_train.py (fpn_base_channel =
+    reg_channel = 4) one pre-activation within float32 rounding of 0 moves
+    the float32 gradients below it ~1e-2 (relative L2) from float64, in
+    either package, and which side each float32 forward takes is chance.
+    So JAX's float32 gradient is held to the float64 step's ("exact_grads",
+    the gradient of the port's function), and the port's to the float64
+    step on the ReLU branches of its own float32 step ("branch_grads"):
+    each within relative L2 `rtol`; gradients under GRAD_NOISE at atol
+    GRAD_NOISE.
+    """
+    jax_g, port_g = step["jax_grads"], step["port_grads"]
+    assert port_g.keys() == jax_g.keys() == step["branch_grads"].keys()
+    for got, exact in ((jax_g, step["exact_grads"]), (port_g, step["branch_grads"])):
+        for key, want in exact.items():
+            if np.linalg.norm(want) < GRAD_NOISE:
+                np.testing.assert_allclose(got[key], want, atol=GRAD_NOISE, err_msg=key)
+            else:
+                assert relative_l2(got[key], want) <= rtol, (key, relative_l2(got[key], want))
 
 
 def check_after(step, lr=1e-3):

@@ -8,13 +8,20 @@
     jitter, and val) equal the JAX package's array for array, for the same
     seed and epoch, on a synthetic DTU tree written by the port's writer
     (_torch_parity.write_dtu_tree); PFM round trips equal across packages;
-    the loader's batches equal.
+    the loader's batches equal; BlendedMVSDataset samples (robust training
+    on, same seed and epoch, and off) equal the JAX package's on a synthetic
+    BlendedMVS tree (_torch_parity.write_blendedmvs_tree).
 """
 
 import numpy as np
 import pytest
 
-from _torch_parity import jax_train_variables, plane_batch, write_dtu_tree
+from _torch_parity import (
+    jax_train_variables,
+    plane_batch,
+    write_blendedmvs_tree,
+    write_dtu_tree,
+)
 from mvster_tpu_torch.data import MVSLoader, find_dataset_def
 from mvster_tpu_torch.data.common import nearest_resize
 from mvster_tpu_torch.data.pfm import read_pfm, write_pfm
@@ -117,3 +124,34 @@ def test_loader_batches_equal_the_jax_package(dtu_tree):
     assert len(got) == len(want) == 9
     for g, w in zip(got, want):
         _assert_same_tree(g, w)
+
+
+@pytest.fixture(scope="module")
+def blended_tree(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("blended"))
+    write_blendedmvs_tree(root, n_views=5, h=96, w=128)
+    return root
+
+
+@pytest.mark.parametrize("split,kw", [("train", dict(robust_train=True, seed=4)),
+                                      ("val", dict(robust_train=False))])
+def test_blendedmvs_dataset_equals_the_jax_package(blended_tree, split, kw):
+    import mvster_tpu.data as jax_data
+
+    args = (blended_tree, f"{blended_tree}/train.txt", split, 3)
+    ours = find_dataset_def("blendedmvs")(*args, **kw)
+    theirs = jax_data.find_dataset_def("blendedmvs")(*args, **kw)
+    assert len(ours) == len(theirs) == 5
+    for epoch in (0, 2):
+        ours.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        for idx in (0, 3):
+            _assert_same_tree(ours[idx], theirs[idx], f"{split} e{epoch} #{idx}")
+    sample = ours[1]
+    assert sample["imgs"].shape == (3, 96, 128, 3)
+    # the GT maps at the loader's 768x576, the range scaled by 100 / depth_min
+    assert sample["depth"]["stage1"].shape == (72, 96)
+    assert sample["depth"]["stage4"].shape == (576, 768)
+    dmin, dmax = sample["depth_values"]
+    assert (80.0 <= dmin <= 125.0) if kw["robust_train"] else dmin == 100.0
+    assert dmax > dmin and sample["mask"]["stage4"].sum() > 0

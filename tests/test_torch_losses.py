@@ -3,7 +3,8 @@
 Inputs from numpy seeds.  Tolerances: sinkhorn loss (both modes) and the
 mvs4net_loss / blend_loss scalars at rtol 1e-5, the transport plan at
 atol 1e-6; the loss's gradient with respect to attn_weight at rtol 1e-4
-(atol 1e-7); depth metrics at rtol 1e-6; schedules against optax at steps
+(atol 1e-7); ot_backend "pallas" against "xla" at the loss's rtol 1e-5 and
+the gradient's rtol 2e-4 / atol 5e-7; depth metrics at rtol 1e-6; schedules against optax at steps
 0, 499, 500, the milestones and the end, at rtol 1e-5 and atol 1e-7 of the
 base rate (optax evaluates them in float32, where the cosine's tail near
 zero loses its relative digits).
@@ -114,14 +115,33 @@ def test_losses_match_jax(fn_name, kw):
                                    rtol=1e-5, atol=1e-7, err_msg=key)
 
 
-def test_pallas_ot_backend_raises_and_names_the_kernels():
-    outputs, depth, mask, dv = _loss_outputs(2, mono=False)
+@pytest.mark.parametrize("ot_iter,ot_eps", [(6, 1.0), (10, 1.0)])
+def test_pallas_ot_backend_matches_xla(ot_iter, ot_eps):
+    """ot_backend="pallas" (the fused K4/K5 route, plain on the CPU) gives
+    the xla backend's loss at rtol 1e-5 and its attn_weight gradients at
+    rtol 2e-4 / atol 5e-7, the JAX package's tolerances for the same test
+    (tests/test_pallas_sinkhorn.py)."""
+    outputs, depth, mask, dv = _loss_outputs(2, h=32, w=32, mono=False)
+    stages = [k for k in outputs if k.startswith("stage")]
 
     def tt(x):
         return {k: tt(v) for k, v in x.items()} if isinstance(x, dict) else t(x)
 
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        losses.mvs4net_loss(tt(outputs), tt(depth), tt(mask), ot_backend="pallas")
+    runs = {}
+    for backend in ("xla", "pallas"):
+        outs = tt({k: v for k, v in outputs.items() if k in stages})
+        for k in stages:
+            outs[k]["attn_weight"].requires_grad_()
+        outs.update(outs["stage4"])
+        total, _ = losses.mvs4net_loss(outs, tt(depth), tt(mask), ot_iter=ot_iter,
+                                       ot_eps=ot_eps, ot_backend=backend)
+        total.backward()
+        runs[backend] = (float(total.detach()),
+                         {k: outs[k]["attn_weight"].grad.numpy() for k in stages})
+    np.testing.assert_allclose(runs["pallas"][0], runs["xla"][0], rtol=1e-5)
+    for k in stages:
+        np.testing.assert_allclose(runs["pallas"][1][k], runs["xla"][1][k],
+                                   rtol=2e-4, atol=5e-7, err_msg=k)
 
 
 def test_depth_metrics_match_jax():

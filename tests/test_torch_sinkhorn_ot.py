@@ -1,0 +1,257 @@
+"""The fused Sinkhorn OT loss (kernels/sinkhorn_ot.py) against the JAX package, and K4/K5 against plain.
+
+CPU, against the JAX package (inputs from numpy seeds), with the JAX
+package's own tolerances for its Pallas pair (tests/test_pallas_sinkhorn.py):
+  sinkhorn_loss_fused (the plain route) vs sinkhorn_loss_pallas in
+  interpret mode: the loss at rtol 1e-5, the attn_weight gradient at rtol
+  2e-4 / atol 5e-7; the same through mvs4net_loss and blend_loss with
+  ot_backend="pallas" (every aux scalar at rtol 1e-5, each stage's
+  attn_weight gradient at rtol 2e-4 / atol 5e-7).
+CPU, within the port: the written-out reverse sweep sinkhorn_pixels_bwd_plain
+against autograd through sinkhorn_pixels_plain, in float64 at rtol 1e-9
+(the same function, so only float64 rounding separates them).
+CUDA (marked `cuda`, skipped without a card; `chip_smoke.py` phase 12
+repeats them at the DTU-mid shapes): K4 vs plain per pixel at rtol 1e-5 /
+atol 1e-6; K5 vs plain at rtol 1e-4 with an absolute floor of 1e-4 of the
+largest |dL/dpred| (where pred underflows, dL/dpred = dlog_nu / 1e-12
+magnifies rounding); the Function's gradient vs autograd through the plain
+forward at the same tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import cuda_device, t  # noqa: F401
+from mvster_tpu_torch.kernels import sinkhorn_ot
+
+
+def _inputs(seed, b=2, d=8, h=8, w=8, gain=3.0, mask_p=0.3):
+    """gt (B, H, W), sorted hypotheses and a softmax attention (B, D, H, W)
+    over DTU's depth range, mask (B, H, W) bool: tests/test_pallas_sinkhorn.py's
+    recipe, with sharper attention (gain) so some bins are near 0."""
+    rng = np.random.default_rng(seed)
+    hypo = np.sort(rng.uniform(400, 900, size=(b, d, h, w)), axis=1)
+    gt = rng.uniform(420, 880, size=(b, h, w))
+    logits = rng.normal(size=(b, d, h, w)) * gain
+    attn = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    mask = rng.uniform(size=(b, h, w)) > mask_p
+    return [x.astype(np.float32) for x in (gt, hypo, attn)] + [mask]
+
+
+def _jax_pallas(gt, hypo, attn, mask, iters, eps):
+    """sinkhorn_loss_pallas and its attn_weight gradient, interpret mode."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from mvster_tpu.kernels.pallas_sinkhorn import sinkhorn_loss_pallas
+
+    def fn(a):
+        return sinkhorn_loss_pallas(jnp.asarray(gt), jnp.asarray(hypo), a,
+                                    jnp.asarray(mask), iters=iters, eps=eps)
+
+    with pltpu.force_tpu_interpret_mode():
+        loss, grad = jax.value_and_grad(fn)(jnp.asarray(attn))
+    return float(loss), np.asarray(grad)
+
+
+def _port(gt, hypo, attn, mask, iters, eps):
+    a = t(attn).requires_grad_()
+    loss = sinkhorn_ot.sinkhorn_loss_fused(t(gt), t(hypo), a, torch.from_numpy(mask),
+                                           iters=iters, eps=eps)
+    loss.backward()
+    return float(loss.detach()), a.grad.numpy()
+
+
+@pytest.mark.parametrize("d,b,h,w,iters,eps,mask_p", [
+    (4, 2, 8, 8, 10, 1.0, 0.3),
+    (8, 1, 16, 16, 6, 1.0, 0.3),
+    (8, 2, 8, 16, 10, 0.7, 0.3),  # eps != 1: cost = (|i-j| / eps) * eps
+    (4, 1, 8, 8, 8, 1.0, 1.1),    # all-zero mask: the mean's denominator clamps to 1
+])
+def test_fused_loss_matches_pallas_interpret(d, b, h, w, iters, eps, mask_p):
+    gt, hypo, attn, mask = _inputs(d + iters, b, d, h, w, mask_p=mask_p)
+    want_loss, want_grad = _jax_pallas(gt, hypo, attn, mask, iters, eps)
+    got_loss, got_grad = _port(gt, hypo, attn, mask, iters, eps)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    np.testing.assert_allclose(got_grad, want_grad, rtol=2e-4, atol=5e-7)
+    if not mask.any():
+        assert got_loss == 0.0 and not got_grad.any()
+
+
+@pytest.mark.parametrize("d,iters,eps", [(4, 10, 1.0), (8, 6, 1.0), (8, 10, 0.5)])
+def test_bwd_plain_matches_autograd(d, iters, eps):
+    """The written-out reverse sweep is the gradient of the plain forward."""
+    _, _, attn, _ = _inputs(20 + d, 2, d, 8, 8)
+    rng = np.random.default_rng(21)
+    pred = torch.from_numpy(attn.astype(np.float64).reshape(2, d, 64)).requires_grad_()
+    gt_idx = torch.from_numpy(rng.integers(0, d, size=(2, 64)))
+    g = torch.from_numpy(rng.uniform(0.0, 1.0, size=(2, 64)))
+    (sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, iters, eps) * g).sum().backward()
+    got = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred.detach(), gt_idx, g, iters, eps)
+    np.testing.assert_allclose(got.numpy(), pred.grad.numpy(), rtol=1e-9, atol=1e-12)
+
+
+def test_per_pixel_loss_matches_core_sinkhorn():
+    """Per pixel, K4's plain version is <T, C> of core.sinkhorn's plan."""
+    from mvster_tpu_torch.core.sinkhorn import sinkhorn
+
+    gt, hypo, attn, mask = _inputs(30, 2, 8, 8, 8)
+    t_map, _ = sinkhorn(t(gt), t(hypo), t(attn), torch.from_numpy(mask), iters=10)
+    cost = (torch.arange(8.0)[:, None] - torch.arange(8.0)[None]).abs()
+    want = (t_map * cost).sum(dim=(2, 3))  # (B, HW)
+    gt_idx = torch.argmin((t(hypo) - t(gt)[:, None]).abs(), dim=1).reshape(2, 64)
+    got = sinkhorn_ot.sinkhorn_pixels_plain(t(attn).reshape(2, 8, 64), gt_idx, 10)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn_name", ["mvs4net_loss", "blend_loss"])
+def test_pallas_backend_through_the_losses_matches_jax(fn_name):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from _torch_parity import torch_batch
+    from mvster_tpu.models import losses as jax_losses
+    from mvster_tpu_torch.models import losses
+
+    from test_torch_losses import _loss_outputs
+
+    outputs, depth, mask, dv = _loss_outputs(5, mono=True)
+    kw = dict(inverse_depth=True, mono=True, l1ot_lw=(1.0, 1.0), ot_iter=8,
+              ot_backend="pallas")
+    stages = [k for k in outputs if k.startswith("stage")]
+    jnp_tree = lambda x: jax.tree_util.tree_map(jnp.asarray, x)  # noqa: E731
+
+    def jax_total(attns):
+        outs = {k: (dict(v, attn_weight=attns[k]) if k in attns else v)
+                for k, v in jnp_tree(outputs).items()}
+        total, aux = getattr(jax_losses, fn_name)(
+            outs, jnp_tree(depth), jnp_tree(mask), depth_values=jnp.asarray(dv), **kw)
+        return total, aux
+
+    with pltpu.force_tpu_interpret_mode():
+        (want, want_aux), want_grads = jax.value_and_grad(jax_total, has_aux=True)(
+            {k: jnp.asarray(outputs[k]["attn_weight"]) for k in stages})
+
+    port_out = torch_batch({k: v for k, v in outputs.items() if k.startswith("stage")})
+    attns = {k: port_out[k]["attn_weight"].requires_grad_() for k in stages}
+    port_out.update(port_out["stage4"])
+    got, got_aux = getattr(losses, fn_name)(port_out, torch_batch(depth), torch_batch(mask),
+                                            depth_values=t(dv), **kw)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    assert got_aux.keys() == want_aux.keys()
+    for key, want_v in want_aux.items():
+        got_v = got_aux[key] if isinstance(want_v, list) else [got_aux[key]]
+        want_v = want_v if isinstance(want_v, list) else [want_v]
+        np.testing.assert_allclose([float(x) for x in got_v], [float(x) for x in want_v],
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    for k in stages:
+        np.testing.assert_allclose(attns[k].grad.numpy(), np.asarray(want_grads[k]),
+                                   rtol=2e-4, atol=5e-7, err_msg=k)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    gt, hypo, attn, mask = _inputs(40, 1, 4, 8, 8)
+    before = (sinkhorn_ot.sinkhorn_fwd.launches, sinkhorn_ot.sinkhorn_bwd.launches)
+    pred = t(attn).reshape(1, 4, 64).requires_grad_()
+    gt_idx = torch.argmin((t(hypo) - t(gt)[:, None]).abs(), dim=1).reshape(1, 64).int()
+    out = sinkhorn_ot.sinkhorn_pixels(pred, gt_idx, 10)
+    np.testing.assert_array_equal(
+        out.detach().numpy(), sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, 10).detach().numpy())
+    out.sum().backward()
+    np.testing.assert_array_equal(
+        pred.grad.numpy(),
+        sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred.detach(), gt_idx, torch.ones(1, 64), 10).numpy())
+    assert (sinkhorn_ot.sinkhorn_fwd.launches, sinkhorn_ot.sinkhorn_bwd.launches) == before
+
+
+def test_bwd_launch_shape_fits_the_history_in_shared_memory():
+    # iters * 2 * D floats of (u, v) history per thread
+    assert sinkhorn_ot.bwd_launch_shape(8, 10) == (64, 64 * 640)
+    assert sinkhorn_ot.bwd_launch_shape(4, 10) == (128, 128 * 320)
+    assert sinkhorn_ot.bwd_launch_shape(8, 0) == (128, 0)
+    threads, smem = sinkhorn_ot.bwd_launch_shape(8, 60)  # 3840 B per thread
+    assert threads == 32 and 48 * 1024 < smem <= sinkhorn_ot.SMEM_BYTES_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        sinkhorn_ot.bwd_launch_shape(8, 114)
+
+
+# (H, W, D) of each dtu_default stage at 512x640, batch 2
+CARD_SHAPES = [(64, 80, 8), (128, 160, 8), (256, 320, 4), (512, 640, 4)]
+
+
+def _card_inputs(shape, device, seed=7, b=2):
+    h, w, d = shape
+    gt, hypo, attn, mask = _inputs(seed, b, d, h, w)
+    pred = t(attn, device).reshape(b, d, h * w)
+    gt_idx = torch.argmin((t(hypo, device) - t(gt, device)[:, None]).abs(),
+                          dim=1).reshape(b, h * w).int()
+    m = torch.from_numpy(mask).to(device).reshape(b, h * w).float()
+    return pred, gt_idx, m / m.sum().clamp(min=1.0)
+
+
+def _assert_dpred_close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernels_match_plain_on_card(cuda_device, shape):
+    pred, gt_idx, g = _card_inputs(shape, cuda_device)
+    before = (sinkhorn_ot.sinkhorn_fwd.launches, sinkhorn_ot.sinkhorn_bwd.launches)
+    loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, 10)
+    dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, 10)
+    torch.cuda.synchronize()
+    assert (sinkhorn_ot.sinkhorn_fwd.launches,
+            sinkhorn_ot.sinkhorn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(loss, sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, 10),
+                               rtol=1e-5, atol=1e-6)
+    _assert_dpred_close(dpred, sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,iters,eps", [(8, 60, 1.0), (4, 3, 0.7)])
+def test_kernels_match_plain_at_other_iters_and_eps_on_card(cuda_device, d, iters, eps):
+    """iters 60 at D = 8 needs 120 KB of history at 32 threads: the launch
+    raises the block's shared-memory limit."""
+    pred, gt_idx, g = _card_inputs((32, 48, d), cuda_device)
+    torch.testing.assert_close(sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, iters, eps),
+                               sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, iters, eps),
+                               rtol=1e-5, atol=1e-6)
+    _assert_dpred_close(sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, iters, eps),
+                        sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, iters, eps))
+
+
+@pytest.mark.cuda
+def test_function_grad_matches_plain_autograd_on_card(cuda_device):
+    gt, hypo, attn, mask = _inputs(8, 2, 8, 128, 160)
+    args = [t(x, cuda_device) for x in (gt, hypo)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    a = t(attn, cuda_device).requires_grad_()
+    b = t(attn, cuda_device).requires_grad_()
+    got = sinkhorn_ot.sinkhorn_loss_fused(*args, a, m, iters=10)
+    got.backward()
+    from mvster_tpu_torch.core.sinkhorn import sinkhorn
+
+    want = sinkhorn(*args, b, m, iters=10)[1]
+    want.backward()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    _assert_dpred_close(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    pred, gt_idx, g = _card_inputs((16, 16, 4), cuda_device)
+    with pytest.raises(ValueError, match="support D"):
+        sinkhorn_ot.sinkhorn_fwd(torch.cat([pred, pred[:, :1]], dim=1), gt_idx, 10)
+    with pytest.raises(ValueError, match="float32"):
+        sinkhorn_ot.sinkhorn_fwd(pred.double(), gt_idx, 10)
+    with pytest.raises(ValueError, match="int32"):
+        sinkhorn_ot.sinkhorn_fwd(pred, gt_idx.long(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g.t().contiguous().t(), 10)
+    with pytest.raises(ValueError, match="is on"):
+        sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g.cpu(), 10)

@@ -15,6 +15,12 @@
     next epoch with Adam's state carried over, --mode profile writes a
     torch.profiler trace; without --device, main raises on a machine with
     no card, and so does tools.test.main.
+  - the BlendedMVS fine-tune: --dataset blendedmvs picks BlendedMVSDataset
+    (robust training for train only) and blend_loss; tools.train.main with
+    --ot_backend pallas from a --loadckpt on a 64x128 synthetic BlendedMVS
+    tree (the loader's GT size cut to the images'), --device cpu, 2 steps of
+    batch 2: finite loss, EPE, err1 and err3 in train and val, and every
+    parameter but the mono decoder's (weighted 0) moved.
 """
 
 import json
@@ -24,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import plane_batch, torch_batch, write_dtu_tree
+from _torch_parity import plane_batch, torch_batch, write_blendedmvs_tree, write_dtu_tree
 from mvster_tpu_torch.config import MVS4NetConfig
 from mvster_tpu_torch.dist.train_step import make_train_step
 from mvster_tpu_torch.models.losses import mvs4net_loss
@@ -181,3 +187,54 @@ def test_train_main_needs_a_card_unless_asked_for_the_cpu(dtu_tree, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         test_tool.main(["--testpath", dtu_tree, "--testlist", "scan1",
                         "--loadckpt", "missing.ckpt"])
+
+
+def test_blendedmvs_picks_its_dataset_and_blend_loss(tmp_path):
+    from mvster_tpu_torch.data.blendedmvs import BlendedMVSDataset
+    from mvster_tpu_torch.models.losses import blend_loss
+    from mvster_tpu_torch.tools import train
+    from mvster_tpu_torch.tools.cli import build_train_parser
+
+    root = str(tmp_path)
+    write_blendedmvs_tree(root, n_views=4, h=64, w=128)
+    args = build_train_parser().parse_args(
+        ["--dataset", "blendedmvs", "--trainpath", root, "--trainlist", f"{root}/train.txt",
+         "--testlist", f"{root}/train.txt", "--nviews", "3", "--rt", "--seed", "2"])
+    train_ds, val_ds = train.build_datasets(args)
+    assert type(train_ds) is type(val_ds) is BlendedMVSDataset
+    assert (train_ds.robust_train, val_ds.robust_train, train_ds.seed) == (True, False, 2)
+    assert len(train_ds) == len(val_ds) == 4
+    assert train.select_loss("blendedmvs") is blend_loss
+    assert train.select_loss("dtu") is train.select_loss("dtu_yao4") is mvs4net_loss
+
+
+def test_train_main_blendedmvs_fine_tune_on_the_cpu(tmp_path, monkeypatch):
+    from mvster_tpu_torch.data.blendedmvs import BlendedMVSDataset
+    from mvster_tpu_torch.tools import train
+    from mvster_tpu_torch.tools.weights import load_reference_ckpt
+
+    root = str(tmp_path / "blended")
+    write_blendedmvs_tree(root, n_views=4, h=64, w=128)  # 4 samples of 3 views
+    # the loader resizes the GT to 768x576; cut it to the 64x128 images
+    init = BlendedMVSDataset.__init__
+    monkeypatch.setattr(BlendedMVSDataset, "__init__",
+                        lambda self, *a, **kw: init(self, *a, **dict(kw, img_wh=(128, 64))))
+    config = MVS4NetConfig.dtu_default()
+    start = init_state_dict(MVS4Net(config), seed=5)
+    ckpt = str(tmp_path / "dtu.ckpt")
+    torch.save({"model": start}, ckpt)
+    logdir = str(tmp_path / "log")
+    result = train.main(["--dataset", "blendedmvs", "--trainpath", root,
+                         "--trainlist", f"{root}/train.txt", "--testlist", f"{root}/train.txt",
+                         "--logdir", logdir, "--loadckpt", ckpt, "--ot_backend", "pallas",
+                         "--rt", "--device", "cpu", *TRAIN_FLAGS, "--batch_size", "2"])
+    assert result["steps"] == 2
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    assert {r["mode"] for r in records} == {"train", "fulltest"}
+    for r in records:
+        for key in ("loss", "epe", "err1", "err3"):
+            assert np.isfinite(r[key]), (r["mode"], key)
+    trained = load_reference_ckpt(result["checkpoint"], config)
+    params = {name for name, _ in MVS4Net(config).named_parameters()}
+    moved = {k for k in params if not torch.equal(trained[k], start[k])}
+    assert moved == {k for k in params if not k.startswith("mono_depth_decoder.")}
