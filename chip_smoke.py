@@ -16,10 +16,10 @@ Phases, one line each, any failure exits non-zero:
   5. serve: tools.test.infer_views answers 3 reference views (eval_batch 1)
   6. times: steady-state forward and per-stage kernel vs plain, CUDA events
   7. kernels K2/K3: the warp gather and its scatter-add backward against
-     their plain versions at the four DTU-mid stage shapes, batch 2, four
-     source views (K2 atol 1e-6, K3 rtol 1e-4 / atol 1e-5), and the
-     autograd Function's source gradient against autograd through the
-     plain gather
+     their plain versions at the four DTU-mid stage shapes (four source
+     views) and the four 576x768 fine-tune stage shapes (two), batch 2 (K2
+     atol 1e-6, K3 rtol 1e-4 / atol 1e-5), and the autograd Function's
+     source gradient against autograd through the plain gather
   8. train: tools.train.main, one epoch of dtu_default() at 512x640, 5
      views, batch 2 (17 steps) and a val pass, on a synthetic DTU tree
      written at full size; finite losses, parameters moved, 16 K2 and 16 K3
@@ -32,7 +32,11 @@ Phases, one line each, any failure exits non-zero:
      final-stage abs depth error drops at least 5x
  11. times: the DTU-mid train step (batch 2) by CUDA events, its peak memory
      and a torch.profiler breakdown; per stage K2, K3, F.grid_sample forward
-     and backward, and the plain versions, in turns
+     and backward, and the plain versions, in turns, each timed back to
+     back and (kernels and F.grid_sample) queued behind a spin of the card,
+     which times the device and not the host's dispatch; each kernel's
+     achieved bytes/s against 3.35 TB/s, and K3's global REDs (float4, and
+     the scalar ones of one RED a channel)
  12. kernels K4/K5: the fused Sinkhorn loss's forward and backward against
      their plain versions at the four DTU-mid stage shapes, batch 2, 10
      iterations (K4 rtol 1e-5 / atol 1e-6 per pixel; K5 rtol 1e-4 with an
@@ -56,7 +60,8 @@ Phases, one line each, any failure exits non-zero:
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
-and K3 for one source view per stage, as one launch covers), and
+and K3 for one source view per stage, as one launch covers, and timed
+queued, as F.grid_sample beside them), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -92,6 +97,7 @@ from _torch_parity import (  # noqa: E402
 )
 from helpers import synthetic_sample  # noqa: E402
 from mvster_tpu_torch.core.geometry import plane_sweep_coords  # noqa: E402
+from mvster_tpu_torch.core.sampling import bilinear_taps  # noqa: E402
 from mvster_tpu_torch.dist.train_step import make_train_step  # noqa: E402
 from mvster_tpu_torch.kernels import _build, sinkhorn_ot, warp_correlate, warp_vjp  # noqa: E402
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig  # noqa: E402
@@ -106,6 +112,9 @@ H, W, NVIEWS = 512, 640, 5
 # (H, W, C, D, G) of each DTU-mid stage under dtu_default
 STAGES = [(64, 80, 64, 8, 8), (128, 160, 32, 8, 8), (256, 320, 16, 4, 4),
           (512, 640, 8, 4, 4)]
+# ... and of the BlendedMVS fine-tune's 576x768 stages
+BLEND_STAGES = [(72, 96, 64, 8, 8), (144, 192, 32, 8, 8), (288, 384, 16, 4, 4),
+                (576, 768, 8, 4, 4)]
 KERNEL_TOL = 1e-4  # atol = rtol; kernel and plain sample at identical coordinates
 KERNEL = dict(name="warp_correlate", route="cuda",
               source="mvster_tpu_torch/csrc/warp_correlate.cu",
@@ -145,6 +154,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 FMA_PER_CLOCK_PER_SM = 128
 MUFU_PER_CLOCK_PER_SM = 16
+QUEUE_SPIN_CYCLES = int(50e-3 * 1.98e9)  # queued_ms: ~50 ms at 1980 MHz
 # one accurate expf, logf and float32 division each, compiled as the port's
 # kernels are (math_costs counts their SASS)
 MATH_PROBE = r"""
@@ -180,6 +190,32 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters, warmup=3):
+    """Mean device milliseconds per call of fn, by CUDA events, with the
+    calls queued behind a 50 ms spin of the card: the host enqueues them
+    while the card waits, so a call shorter than its own Python and
+    dispatch time is timed by its kernels, not by the host."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    if host_s > 0.04:  # the card finished its spin before the host queued the calls
+        raise AssertionError(f"queueing {iters} calls took {host_s * 1e3:.1f} ms of host time")
+    return start.elapsed_time(end) / iters
+
+
+def gbs(nbytes, ms):
+    return f"{nbytes / ms / 1e6:.1f}"
 
 
 def model_inputs(sample, device):
@@ -231,16 +267,18 @@ def k2_work(h, w, c, d, b=BATCH):
 
 
 def phase7_kernels(dev):
-    """K2 and K3 against their plain versions at the DTU-mid stage shapes,
-    batch 2, every source view; returns the max errors and one view's
-    (src, x, y, cot) per stage for phase 11."""
+    """K2 and K3 against their plain versions at the DTU-mid stage shapes
+    (every source view) and the 576x768 ones (two), batch 2; returns the
+    max errors and one DTU-mid view's (src, x, y, cot) per stage for phase
+    11."""
     err2 = err3 = errf = 0.0
     per_stage = []
-    for si, (h, w, c, d, _) in enumerate(STAGES):
-        inp = stage_inputs(200 + si, h, w, c, d, nsrc=NVIEWS - 1, batch=BATCH)
+    shapes = [(s, NVIEWS - 1) for s in STAGES] + [(s, 2) for s in BLEND_STAGES]
+    for si, ((h, w, c, d, _), views) in enumerate(shapes):
+        inp = stage_inputs(200 + si, h, w, c, d, nsrc=views, batch=BATCH)
         ref_proj, hypo = t(inp["ref_proj"], dev), t(inp["hypo"], dev)
         rng = np.random.default_rng(300 + si)
-        for v in range(NVIEWS - 1):
+        for v in range(views):
             x, y = plane_sweep_coords(t(inp["src_projs"][v], dev), ref_proj, hypo)
             src = t(inp["src"][v], dev)
             cot = t(rng.normal(size=(BATCH, d, h, w, c)), dev)
@@ -260,9 +298,10 @@ def phase7_kernels(dev):
             (warp_vjp.warp_plain(b, x, y) * cot).sum().backward()
             torch.testing.assert_close(a.grad, b.grad, rtol=K3_RTOL, atol=K3_ATOL)
             errf = max(errf, (a.grad - b.grad).abs().max().item())
-            if v == 0:
+            if v == 0 and si < len(STAGES):
                 per_stage.append((src, x, y, cot))
-    log(f"[7 kernels K2/K3] {len(STAGES)} stages x {NVIEWS - 1} views, batch {BATCH}: "
+    log(f"[7 kernels K2/K3] {len(STAGES)} DTU-mid stages x {NVIEWS - 1} views and "
+        f"{len(BLEND_STAGES)} {BLEND_H}x{BLEND_W} stages x 2 views, batch {BATCH}: "
         f"K2 vs plain max|d| {err2:.3e} (atol {K2_ATOL}), K3 vs plain max|d| {err3:.3e} "
         f"(rtol {K3_RTOL}, atol {K3_ATOL}), Function src.grad vs plain autograd "
         f"max|d| {errf:.3e}")
@@ -454,7 +493,8 @@ def phase11_times(dev, root, per_stage, card):
         "device time per step: "
         + "; ".join(f"{k[:70]} {v / 3 / 1e3:.3f} ms" for k, v in top) + f" | {card}")
 
-    sums = dict(k2=0.0, k3=0.0, gs_f=0.0, gs_b=0.0, p2=0.0, p3=0.0, b2=0.0, b3=0.0)
+    sums = dict(k2=0.0, k3=0.0, gs_f=0.0, gs_b=0.0, p2=0.0, p3=0.0, b2=0.0, b3=0.0,
+                bytes=0.0, qk2=0.0, qk3=0.0, qgs_f=0.0, qgs_b=0.0)
     by2 = by3 = "bytes"
     for si, (src, x, y, cot) in enumerate(per_stage):
         h, w, c, d, _ = STAGES[si]
@@ -481,9 +521,13 @@ def phase11_times(dev, root, per_stage, card):
         )
         order = ["p2", "k2", "gs_f", "p3", "k3", "gs_b"]
         times = {k: [] for k in fns}
+        queued = {k: [] for k in ("k2", "gs_f", "k3", "gs_b")}
         for name in order + order[::-1]:  # in turns: forward, then back again
             times[name].append(cuda_ms(fns[name], iters=10))
+            if name in queued:
+                queued[name].append(queued_ms(fns[name], iters=10))
         ms = {k: sum(v) / len(v) for k, v in times.items()}
+        ms.update({"q" + k: sum(v) / len(v) for k, v in queued.items()})
         nbytes, ops2, ops3 = k2_work(h, w, c, d)
         b2, by2 = bound(nbytes, ops2)
         b3, by3 = bound(nbytes, ops3)
@@ -491,10 +535,23 @@ def phase11_times(dev, root, per_stage, card):
             sums[k] += ms[k]
         sums["b2"] += b2
         sums["b3"] += b3
-        log(f"[11 times] stage{si + 1} {(h, w)} C={c} D={d} B={BATCH}, one view: K2 "
-            f"{ms['k2']:.4f} ms (plain {ms['p2']:.4f}, F.grid_sample {ms['gs_f']:.4f}, "
-            f"bound {b2:.4f}); K3 {ms['k3']:.4f} ms (plain {ms['p3']:.4f}, grid_sample "
-            f"backward {ms['gs_b']:.4f}, bound {b3:.4f}); {nbytes / 1e6:.1f} MB | {card}")
+        sums["bytes"] += nbytes
+        # K3's global REDs: one a (sample, tap of nonzero weight, float4)
+        taps = sum(int((wt != 0).sum()) for _, wt in bilinear_taps(x, y, h, w))
+        log(f"[11 times] stage{si + 1} {(h, w)} C={c} D={d} B={BATCH}, one view, back to back "
+            f"(queued): K2 {ms['k2']:.4f} ({ms['qk2']:.4f}) ms, {gbs(nbytes, ms['qk2'])} GB/s "
+            f"queued; F.grid_sample {ms['gs_f']:.4f} ({ms['qgs_f']:.4f}); plain {ms['p2']:.4f}; "
+            f"bound {b2:.4f}.  K3 {ms['k3']:.4f} ({ms['qk3']:.4f}) ms, "
+            f"{gbs(nbytes, ms['qk3'])} GB/s queued; grid_sample backward {ms['gs_b']:.4f} "
+            f"({ms['qgs_b']:.4f}); plain {ms['p3']:.4f}; bound {b3:.4f}; {nbytes / 1e6:.1f} MB; "
+            f"K3 issued {taps * c // 4:.4e} float4 REDs ({taps * c // 4 / ms['qk3'] * 1e3:.4e}/s "
+            f"queued) where one scalar RED a channel would take {taps * c:.4e} | {card}")
+    log(f"[11 times] over the four stages, back to back (queued): K2 {sums['k2']:.4f} "
+        f"({sums['qk2']:.4f}) ms vs F.grid_sample {sums['gs_f']:.4f} ({sums['qgs_f']:.4f}); "
+        f"K3 {sums['k3']:.4f} ({sums['qk3']:.4f}) ms vs grid_sample backward "
+        f"{sums['gs_b']:.4f} ({sums['qgs_b']:.4f}); queued K2 {gbs(sums['bytes'], sums['qk2'])} "
+        f"and K3 {gbs(sums['bytes'], sums['qk3'])} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}; "
+        f"bounds {sums['b2']:.4f} and {sums['b3']:.4f} ms | {card}")
     return sums, by2, by3
 
 
@@ -1016,12 +1073,12 @@ def main():
         dict(KERNEL, launches=main_path_launches, max_abs_err=max(errs), ms=k_total,
              plain_ms=p_total, bound_ms=k1_bound, bound_by=k1_bounds[-1][1],
              library_ms=None, wrapper_ms=w_total),
-        dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["k2"],
+        dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
-             library_ms=sums["gs_f"]),
-        dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["k3"],
+             library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"]),
+        dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
-             library_ms=sums["gs_b"]),
+             library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"]),
         dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["k4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
              library_ms=None),

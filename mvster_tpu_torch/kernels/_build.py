@@ -141,7 +141,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [
                 p, p, p, p,             # src|cot, x, y, out|dsrc
-                i, i, i, i, i, i,       # B, N, Hs, Ws, C, vec4
+                i, i, i, i, i,          # B, N, Hs, Ws, C
+                i, i, i,                # vec4, lanes_log2, spl
                 p,                      # cudaStream_t
             ]
             fn.restype = i

@@ -15,12 +15,17 @@ constant cameras.  A CPU tensor takes the plain versions, `warp_plain`
 transpose of the same four taps); a CUDA tensor launches the kernel or
 raises.  `warp_gather.launches` and `scatter_grad.launches` count kernel
 launches, so a run can show that its main path went through the kernels.
+`plan_launch` decides, in Python, how the kernels map threads to samples
+(lanes a sample, samples a lane).
 
 Layouts: src (B, Hs, Ws, C) channels-last; x, y (B, ...) raw pixel
 coordinates; the warped output (B, ..., C).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,16 +51,37 @@ def scatter_grad_plain(cot: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return dsrc.reshape(b, h, w, c)
 
 
+THREADS = 256  # csrc/warp_scatter.cu kThreads
+
+
+class LaunchPlan(NamedTuple):
+    """How K2 and K3 map threads to samples (csrc/warp_scatter.cu)."""
+
+    vec: int         # floats a lane moves at once: 4 (float4) or 1
+    lanes_log2: int  # a sample's channels go to 2**lanes_log2 threads
+    spl: int         # samples per lane
+
+
+@functools.lru_cache(maxsize=None)
+def plan_launch(c: int, vec4: bool = True) -> LaunchPlan:
+    """The launch of K2/K3 for C channels: float4 lanes where C % 4 == 0
+    (and vec4, the pointers' alignment), C / 4 lanes a sample rounded up to
+    a power of two and at most 32, and 8 / (C / 4) samples a lane where a
+    sample has fewer than 8 vectors."""
+    vec = 4 if vec4 and c % 4 == 0 else 1
+    nvec = c // vec
+    return LaunchPlan(vec, min(5, (nvec - 1).bit_length()), max(1, 8 // nvec))
+
+
 def _launch(fn_name, data, x, y, out, src_shape):
     """Launch mvster_warp_gather or mvster_warp_scatter on the current stream."""
     lib = load_library()
     b, h, w, c = src_shape
-    n = x.numel() // b
-    vec4 = int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (data, out)))
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn_name)(data.data_ptr(), x.data_ptr(), y.data_ptr(),
-                                   out.data_ptr(), b, n, h, w, c, vec4, stream)
+    plan = plan_launch(c, data.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    rc = getattr(lib, fn_name)(data.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                               b, x.numel() // b, h, w, c, int(plan.vec == 4),
+                               plan.lanes_log2, plan.spl,
+                               torch.cuda.current_stream(data.device).cuda_stream)
     raise_on_error(lib, rc, fn_name)
 
 

@@ -8,10 +8,17 @@ CPU, against the JAX package (inputs from numpy seeds):
   taps in their own order); the autograd Function's src gradient vs
   jax.grad through grid_sample_zeros_vjp's interpret-mode Pallas pair (rtol
   1e-4, atol 1e-5).
+CPU, the launch planner: at every DTU-mid and 576x768 stage shape and at
+C % 4 != 0, the plan's lanes and samples per lane hold the kernels'
+assumptions, and the kernels' thread-to-sample mapping (csrc/
+warp_scatter.cu, modelled in numpy) covers every (sample, vector) exactly
+once.
 CUDA (marked `cuda`, skipped without a card; `chip_smoke.py` phase 7
-repeats them at the DTU-mid shapes): K2 vs warp_plain at atol 1e-6, K3 vs
-scatter_grad_plain at rtol 1e-4 / atol 1e-5 (atomics sum in no fixed
-order), and the Function's src.grad vs autograd through warp_plain.
+repeats them at the DTU-mid and 576x768 shapes): K2 vs warp_plain at atol
+1e-6, K3 vs scatter_grad_plain at rtol 1e-4 / atol 1e-5 (atomics sum in no
+fixed order), on plane-sweep coordinates, on coordinates spread over and
+beyond the whole image, and on coordinates that all land on one 2x2 patch;
+and the Function's src.grad vs autograd through warp_plain.
 """
 
 import numpy as np
@@ -152,10 +159,51 @@ def test_cpu_tensors_take_the_plain_versions():
     np.testing.assert_array_equal(src.grad.numpy(), want.numpy())
 
 
-# (H, W, C, D) of each dtu_default stage at 512x640, and two odd shapes
-# (C not a multiple of 4 takes the scalar channel loop)
+# (H, W, C, D) of each dtu_default stage at 512x640 and at the BlendedMVS
+# fine-tune's 576x768, and two odd shapes (C not a multiple of 4 takes the
+# scalar channel loop)
 CARD_SHAPES = [(64, 80, 64, 8), (128, 160, 32, 8), (256, 320, 16, 4),
-               (512, 640, 8, 4), (48, 64, 3, 2), (32, 40, 6, 3)]
+               (512, 640, 8, 4), (72, 96, 64, 8), (144, 192, 32, 8),
+               (288, 384, 16, 4), (576, 768, 8, 4), (64, 64, 4, 4), (48, 64, 3, 2),
+               (32, 40, 6, 3)]
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_launch_plan_holds_the_kernels_assumptions(shape):
+    c = shape[2]
+    plan = warp_vjp.plan_launch(c)
+    lanes, nvec = 1 << plan.lanes_log2, c // plan.vec
+    assert plan.vec == (4 if c % 4 == 0 else 1)
+    # a power of two of lanes, one vector each where C / 4 <= 32
+    assert lanes <= 32 and (lanes >= nvec or lanes == 32) and lanes < 2 * nvec
+    assert plan.spl == max(1, 8 // nvec) and warp_vjp.THREADS % lanes == 0
+    assert warp_vjp.plan_launch(c, vec4=False).vec == 1  # unaligned pointers
+
+
+def _coverage(plan, c, n):
+    """Hits of each (sample, vector) of one batch row of n samples by the
+    kernels' threads (the index arithmetic of csrc/warp_scatter.cu's
+    kernels and grid_for, in numpy)."""
+    lanes, nvec = 1 << plan.lanes_log2, c // plan.vec
+    groups = warp_vjp.THREADS // lanes
+    per_block = groups * plan.spl
+    tid = np.arange(warp_vjp.THREADS)[None, :, None]
+    blk = np.arange(-(-n // per_block))[:, None, None]
+    k = np.arange(plan.spl)[None, None, :]
+    sample = blk * per_block + (tid >> plan.lanes_log2) + k * groups
+    lane = tid & (lanes - 1)
+    hits = np.zeros((n, nvec), np.int64)
+    for q0 in range(0, nvec, lanes):  # a lane's vectors q, q + lanes, ...
+        q = np.broadcast_to(lane + q0, sample.shape)
+        ok = (sample < n) & (q < nvec)
+        np.add.at(hits, (sample[ok], q[ok]), 1)
+    return hits
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES + [(20, 36, 132, 1), (3, 5, 1, 1)])
+def test_launch_plan_covers_every_sample_once(shape):
+    h, w, c, d = shape
+    np.testing.assert_array_equal(_coverage(warp_vjp.plan_launch(c), c, d * h * w), 1)
 
 
 def _card_inputs(shape, device, seed=6):
@@ -183,6 +231,48 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
     torch.testing.assert_close(
         dsrc, warp_vjp.scatter_grad_plain(cot, x, y, src.shape),
         rtol=1e-4, atol=1e-5)
+
+
+def _odd_inputs(case, shape, device, seed=7):
+    """src, x, y (B, D, H, W) and a cotangent.  "spread": coordinates
+    uniform over [-3, W + 2] x [-3, H + 2] (every tap branch, taps far
+    apart).  "patch": every coordinate inside one 2x2 source patch (all
+    taps on the same four pixels), at quarter-pixel offsets, with integer
+    cotangents: each product is a multiple of 1/16 and every partial sum is
+    exact in float32 (at most 2^24 sixteenths), so any order of the atomic
+    sums gives the plain version's result."""
+    h, w, c, d = shape
+    rng = np.random.default_rng(seed)
+    size = (2, d, h, w)
+    if case == "spread":
+        x, y = rng.uniform(-3, w + 2, size), rng.uniform(-3, h + 2, size)
+        cot = rng.normal(size=size + (c,))
+    else:
+        quarter = np.array([0.25, 0.5, 0.75])
+        x = w // 2 + rng.choice(quarter, size)
+        y = h // 3 + rng.choice(quarter, size)
+        cot = rng.integers(-4, 5, size + (c,))
+    src = rng.normal(size=(2, h, w, c))
+    return tuple(t(a, device) for a in (src, x, y, cot))
+
+
+# "patch" holds up to 512 x 640 samples a pixel (its sums stay exact)
+ODD_CASES = [("spread", (64, 80, 64, 8)), ("spread", (256, 320, 16, 4)),
+             ("spread", (512, 640, 8, 4)), ("spread", (48, 64, 3, 2)),
+             ("patch", (64, 80, 64, 8)), ("patch", (256, 320, 16, 1)),
+             ("patch", (512, 640, 8, 1)), ("patch", (48, 64, 3, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shape", ODD_CASES)
+def test_kernels_match_plain_on_odd_coordinates(cuda_device, case, shape):
+    src, x, y, cot = _odd_inputs(case, shape, cuda_device)
+    got = warp_vjp.warp_gather(src, x, y)
+    dsrc = warp_vjp.scatter_grad(cot, x, y, src.shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, warp_vjp.warp_plain(src, x, y), rtol=0, atol=1e-6)
+    torch.testing.assert_close(dsrc, warp_vjp.scatter_grad_plain(cot, x, y, src.shape),
+                               rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
