@@ -14,7 +14,11 @@ Phases, one line each, any failure exits non-zero:
      launches, and against the same model run on the CPU (plain path) by
      the stage comparator of tests/_torch_parity.py
   5. serve: tools.test.infer_views answers 3 reference views (eval_batch 1)
-  6. times: steady-state forward and per-stage kernel vs plain, CUDA events
+  6. times: the steady-state forward by CUDA events and a torch.profiler
+     breakdown of it (device busy, launches, K1's share); per stage, in
+     turns, K1 queued behind a spin of the card and back to back, K1 with
+     its rot/trans glue (what the forward calls), the plain version, the
+     bound and the launch's blocks
   7. kernels K2/K3: the warp gather and its scatter-add backward against
      their plain versions at the four DTU-mid stage shapes (four source
      views) and the four 576x768 fine-tune stage shapes (two), batch 2 (K2
@@ -57,11 +61,19 @@ Phases, one line each, any failure exits non-zero:
  15. times: per stage K4, K5, their plain versions and both backends' loss
      forward+backward; the DTU-mid train step with pallas and with xla; the
      BlendedMVS step and its peak memory; CUDA events, in turns
+ 16. off-default counts: K1 against plain at 64x80, C=64, (D, G) in
+     (2, 2), (3, 2), (16, 16), both attention modes (atol/rtol 1e-4); K4/K5
+     against plain at D in 2, 3, 16, 64 (phase 12's tolerances); an eval
+     forward at 128x192, 3 views, stage_splits (16, 8, 4, 4) and
+     group_cor_dim (16, 8, 4, 2) against the CPU plain path by the stage
+     comparator, with 4 K1 launches; and a train step of that model with
+     ot_backend pallas (4 K4, 4 K5 launches) against xla, per-stage OT
+     losses at rtol 1e-5
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
-and K3 for one source view per stage, as one launch covers, and timed
-queued, as F.grid_sample beside them), and
+and K3 for one source view per stage, as one launch covers; K1, K2 and K3
+timed queued, with their back-to-back times beside), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -146,6 +158,11 @@ BLEND_FLAGS = ["--dataset", "blendedmvs", "--ot_backend", "pallas", "--nviews",
                str(BLEND_VIEWS), "--batch_size", str(BATCH), "--epochs", "1",
                "--group_cor", "--inverse_depth", "--mono", "--attn_temp", "2",
                "--summary_freq", "1"]
+# phase 16: depth and group counts off dtu_default's (8, 8, 4, 4) / (8, 8, 4, 4)
+OFF_DG = [(2, 2), (3, 2), (16, 16)]  # K1 at the stage-1 shape (C = 64)
+OFF_D = [2, 3, 16, 64]  # K4/K5
+OFF_CONFIG = dict(stage_splits=(16, 8, 4, 4), group_cor_dim=(16, 8, 4, 2))
+OFF_H, OFF_W, OFF_VIEWS = 128, 192, 3
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores; per clock and SM, its float32
 # pipe starts 128 FFMA, FADD or FMUL and its special-function units (MUFU:
@@ -224,8 +241,8 @@ def model_inputs(sample, device):
             t(sample["depth_values"], device))
 
 
-def build_model(seed):
-    model = MVS4Net(MVS4NetConfig.dtu_default(mono=False))
+def build_model(seed, **overrides):
+    model = MVS4Net(MVS4NetConfig.dtu_default(mono=False, **overrides))
     sd = random_state_dict(model, seed)
     # BatchNorm running statistics perturbed from a numpy seed
     rng = np.random.default_rng(seed)
@@ -264,6 +281,73 @@ def k2_work(h, w, c, d, b=BATCH):
     n = b * d * h * w
     nbytes = 4 * (b * h * w * c + 2 * n + n * c)
     return nbytes, n * (7 * c + 20), n * (8 * c + 20)
+
+
+def profile_forward(model, inputs, fwd_ms, card, n=5):
+    """torch.profiler over n eval forwards: device-busy ms a forward, its
+    share of the CUDA-event time fwd_ms, launches, K1's share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            model(*inputs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total", 0) for e in kernels}
+    busy = sum(dev_us.values()) / n / 1e3
+    k1 = sum(v for k, v in dev_us.items() if "warp_correlate_kernel" in k) / n / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[6 times] profile of {n} forwards: device busy {busy:.3f} ms a forward "
+        f"({busy / fwd_ms:.1%} of the {fwd_ms:.3f} ms by CUDA events), "
+        f"{sum(e.count for e in kernels) // n} kernel launches a forward; K1 {k1:.4f} ms "
+        f"({k1 / busy:.1%} of busy); top kernels by device time a forward: "
+        + "; ".join(f"{k[:70]} {v / n / 1e3:.4f} ms" for k, v in top) + f" | {card}")
+
+
+def phase6_k1_times(stage_args, card):
+    """K1 per DTU-mid stage (batch 1, four source views, attn_fuse_d), in
+    turns plain, kernel, wrapper and back: the kernel on precomputed
+    rot/trans queued behind a spin of the card and back to back, the
+    wrapper with its plane_sweep_rts glue and the plain version back to
+    back; beside the bound and the launch's blocks.  Returns the sums over
+    the stages and each stage's (bound, bound_by)."""
+    sums = dict(qk=0.0, k=0.0, w=0.0, p=0.0, b=0.0)
+    bounds = []
+    for si, (args, g) in enumerate(stage_args):
+        h, w, c, d, _ = STAGES[si]
+        ref_feat, src_feats, ref_proj, src_projs, hypo = args
+        rot, trans = warp_correlate.plane_sweep_rts(ref_proj, src_projs)
+        fns = dict(
+            k=lambda: warp_correlate.launch(ref_feat, src_feats, hypo, rot, trans, g, 2.0, True),
+            w=lambda: warp_correlate.fused_cost_volume(*args, g, 2.0, True),
+            p=lambda: warp_correlate.fused_cost_volume_plain(*args, g, 2.0, True),
+        )
+        order = ["p", "k", "w"]
+        times = {k: [] for k in fns}
+        queued = []
+        for name in order + order[::-1]:
+            times[name].append(cuda_ms(fns[name], iters=20))
+            if name == "k":
+                queued.append(queued_ms(fns[name], iters=20))
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        ms["qk"] = sum(queued) / len(queued)
+        b, by = bound(*k1_work(h, w, c, d, g))
+        bounds.append((b, by))
+        ms["b"] = b
+        for k in sums:
+            sums[k] += ms[k]
+        plan = warp_correlate.plan_launch(d, c, g)
+        log(f"[6 times] stage{si + 1} {(h, w)} C={c} D={d} G={g}, {NVIEWS - 1} views: K1 "
+            f"queued {ms['qk']:.4f} ms, back to back {ms['k']:.4f}; with rot/trans "
+            f"{ms['w']:.4f}; plain {ms['p']:.4f}; bound {b:.4f} by {by}; "
+            f"{-(-h * w // plan.pixels)} blocks of {plan.threads} threads, float4 split "
+            f"{plan.split} | {card}")
+    log(f"[6 times] K1 over the four stages: queued {sums['qk']:.4f} ms, back to back "
+        f"{sums['k']:.4f}; with rot/trans {sums['w']:.4f}; plain {sums['p']:.4f}; bound "
+        f"{sums['b']:.4f} (" + ", ".join(f"s{i + 1} {b * 1e3:.1f} us by {by}"
+                                        for i, (b, by) in enumerate(bounds)) + f") | {card}")
+    return sums, bounds
 
 
 def phase7_kernels(dev):
@@ -777,6 +861,23 @@ def dtu_batch(root, dev):
     return device_batch(next(iter(MVSLoader(ds, BATCH, prefetch=0))), dev)
 
 
+def backend_step(config, sd, batch, backend, dtype=torch.float32):
+    """One train step (SGD at lr 0) of `config` from the state dict sd on
+    batch, with the OT loss through `backend`: its scalars and the model,
+    whose parameters hold the gradients."""
+    model = MVS4Net(config)
+    model.load_state_dict(sd, strict=True)
+    model.to(device=batch["imgs"].device, dtype=dtype)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                           loss_kwargs=dict(LOSS_KW, ot_backend=backend))
+    scalars, _ = step(batch)
+    return scalars, model
+
+
+def ot_losses(scalars):
+    return [float(scalars[f"s{i}_c_loss"]) for i in range(4)]
+
+
 def phase14_backends(dev, root):
     """ot_backend pallas against xla on one DTU-mid train step."""
     config = MVS4NetConfig.dtu_default()
@@ -786,23 +887,17 @@ def phase14_backends(dev, root):
     for name, backend, dtype in (("pallas", "pallas", torch.float32),
                                  ("xla", "xla", torch.float32),
                                  ("exact", "xla", torch.float64)):
-        model = MVS4Net(config)
-        model.load_state_dict(sd, strict=True)
-        model.to(device=dev, dtype=dtype)
-        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
-                               loss_kwargs=dict(LOSS_KW, ot_backend=backend))
-        b = batch
         if dtype == torch.float64:
             b = {k: ({s: x.double() for s, x in v.items()} if isinstance(v, dict)
                      else v.double()) for k, v in batch.items()}
             with plain_warp():
-                scalars, _ = step(b)
+                scalars, model = backend_step(config, sd, b, backend, dtype)
         else:
-            scalars, _ = step(b)
-        runs[name] = dict(ot=[float(scalars[f"s{i}_c_loss"]) for i in range(4)],
+            scalars, model = backend_step(config, sd, batch, backend, dtype)
+        runs[name] = dict(ot=ot_losses(scalars),
                           grads={k: p.grad.double().cpu().numpy()
                                  for k, p in model.named_parameters()})
-        del model, step
+        del model
         torch.cuda.empty_cache()
     np.testing.assert_allclose(runs["pallas"]["ot"], runs["xla"]["ot"], rtol=1e-5)
     worst, worst_key, checked = 0.0, "", 0
@@ -919,6 +1014,89 @@ def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
     return sums, by4, by5
 
 
+def phase16_off_default(dev, card):
+    """Depth and group counts off dtu_default: K1, K4 and K5 against their
+    plain versions, and one eval forward and one train step per OT backend
+    of a model whose stages take them (OFF_CONFIG)."""
+    h, w, c = STAGES[0][:3]
+    err1 = 0.0
+    for i, (d, g) in enumerate(OFF_DG):
+        inp = stage_inputs(500 + i, h, w, c, d, nsrc=NVIEWS - 1)
+        args = [t(inp[k], dev) for k in ("ref", "src", "ref_proj", "src_projs", "hypo")]
+        for fuse in (True, False):
+            before = warp_correlate.fused_cost_volume.launches
+            got = warp_correlate.fused_cost_volume(*args, g, 2.0, fuse)
+            want = warp_correlate.fused_cost_volume_plain(*args, g, 2.0, fuse)
+            torch.cuda.synchronize()
+            if warp_correlate.fused_cost_volume.launches != before + 1:
+                raise AssertionError(f"D={d} G={g}: no K1 launch")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"D={d} G={g}: non-finite K1 output")
+            torch.testing.assert_close(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            err1 = max(err1, (got - want).abs().max().item())
+    err4 = err5 = 0.0
+    for i, d in enumerate(OFF_D):
+        gt, hypo, attn, mask = ot_inputs(600 + i, h, w, d, dev)
+        pred = attn.reshape(BATCH, d, h * w)
+        gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(BATCH, h * w).int()
+        m = mask.reshape(BATCH, h * w).float()
+        g = m / m.sum().clamp(min=1.0)
+        loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
+        dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
+        want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
+        dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
+            raise AssertionError(f"D={d}: non-finite K4/K5 output")
+        torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
+        _assert_dpred_close(dpred, dwant)
+        err4 = max(err4, (loss - want).abs().max().item())
+        err5 = max(err5, (dpred - dwant).abs().max().item())
+    log(f"[16 off-default] K1 vs plain at {h}x{w}, C={c}, (D, G) in {OFF_DG}, both attention "
+        f"modes: max|d| {err1:.3e} (atol=rtol={KERNEL_TOL}); K4/K5 vs plain at {h}x{w}, batch "
+        f"{BATCH}, D in {OFF_D}: max|d| {err4:.3e} and {err5:.3e}")
+
+    sample = synthetic_sample(16, nviews=OFF_VIEWS, h=OFF_H, w=OFF_W)
+    model_cpu = build_model(seed=16, **OFF_CONFIG)
+    model = copy.deepcopy(model_cpu).to(dev)
+    with torch.inference_mode():
+        warp_correlate.fused_cost_volume.launches = 0
+        out = model(*model_inputs(sample, dev))
+        torch.cuda.synchronize()
+        k1 = warp_correlate.fused_cost_volume.launches
+        ref = model_cpu(*model_inputs(sample, "cpu"))
+    out, ref = to_numpy_tree(out), to_numpy_tree(ref)
+    planes = [out[f"stage{s}"]["attn_weight"].shape[1] for s in range(1, 5)]
+    if k1 != 4 or planes != list(OFF_CONFIG["stage_splits"]):
+        raise AssertionError(f"off-default forward: {k1} K1 launches, planes {planes}")
+    if not np.isfinite(out["depth"]).all():
+        raise AssertionError("off-default forward: non-finite depth")
+    assert_stage_close(ref, out)
+    del model, model_cpu
+
+    config = MVS4NetConfig.dtu_default(**OFF_CONFIG)
+    sd = init_state_dict(MVS4Net(config), seed=16)
+    batch = torch_batch(plane_batch(1, h=OFF_H, w=OFF_W), dev)
+    ot, launches = {}, {}
+    for backend in ("pallas", "xla"):
+        _reset_counts()
+        scalars, model = backend_step(config, sd, batch, backend)
+        torch.cuda.synchronize()
+        launches[backend] = (sinkhorn_ot.sinkhorn_fwd.launches, sinkhorn_ot.sinkhorn_bwd.launches)
+        ot[backend] = ot_losses(scalars)
+        del model
+    if launches != {"pallas": (4, 4), "xla": (0, 0)}:
+        raise AssertionError(f"off-default train step: K4/K5 launches {launches}")
+    np.testing.assert_allclose(ot["pallas"], ot["xla"], rtol=1e-5)
+    torch.cuda.empty_cache()
+    log(f"[16 off-default] eval forward at {OFF_H}x{OFF_W}, {OFF_VIEWS} views, stage_splits "
+        f"{OFF_CONFIG['stage_splits']}, group_cor_dim {OFF_CONFIG['group_cor_dim']}: {k1} K1 "
+        f"launches, matches the CPU plain path by the stage comparator; a train step with "
+        f"ot_backend pallas ({launches['pallas'][0]} K4, {launches['pallas'][1]} K5 launches) "
+        f"against xla: per-stage OT loss " + ", ".join(f"{x:.6f}" for x in ot["pallas"])
+        + " vs " + ", ".join(f"{x:.6f}" for x in ot["xla"]) + f" (rtol 1e-5) | {card}")
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1018,35 +1196,8 @@ def main():
         fwd_ms = cuda_ms(lambda: model(*inputs), iters=20)
     log(f"[6 times] forward {fwd_ms:.3f} ms = {fwd_ms / 1e3:.5f} s/view "
         f"(512x640, 5 views, batch 1, f32) | {card}")
-    k_total = w_total = p_total = 0.0
-    for si, (args, g) in enumerate(stage_args):
-        ref_feat, src_feats, ref_proj, src_projs, hypo = args
-        rot, trans = warp_correlate.plane_sweep_rts(ref_proj, src_projs)
-
-        def kern():  # the kernel alone, on precomputed rot/trans
-            warp_correlate.launch(ref_feat, src_feats, hypo, rot, trans, g, 2.0, True)
-
-        def wrapped():  # what the main path calls: rot/trans, then the kernel
-            warp_correlate.fused_cost_volume(*args, g, 2.0, True)
-
-        def plain():
-            warp_correlate.fused_cost_volume_plain(*args, g, 2.0, True)
-
-        # in turns, plain-kernel-kernel-plain, inside one call on one card
-        p1, k1, w1, w2, k2, p2 = (cuda_ms(f, iters=20)
-                                  for f in (plain, kern, wrapped, wrapped, kern, plain))
-        k_ms, w_ms, p_ms = (k1 + k2) / 2, (w1 + w2) / 2, (p1 + p2) / 2
-        k_total += k_ms
-        w_total += w_ms
-        p_total += p_ms
-        log(f"[6 times] stage{si + 1} {STAGES[si][:2]} C={STAGES[si][2]} D={STAGES[si][3]} "
-            f"G={g}: kernel {k_ms:.4f} ms, with rot/trans {w_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms | {card}")
-    k1_bounds = [bound(*k1_work(*st)) for st in STAGES]
-    k1_bound = sum(b for b, _ in k1_bounds)
-    log(f"[6 times] K1 bound {k1_bound:.4f} ms over the four stages ("
-        + ", ".join(f"s{i + 1} {b * 1e3:.1f} us by {by}" for i, (b, by) in enumerate(k1_bounds))
-        + ")")
+    profile_forward(model, inputs, fwd_ms, card)
+    k1_sums, k1_bounds = phase6_k1_times(stage_args, card)
 
     # 7-11: the training path; 12-15: the fused Sinkhorn loss and the
     # BlendedMVS fine-tune
@@ -1067,12 +1218,13 @@ def main():
         f"(nvidia-smi's maximum SM clock) = {rates[0]:.4e} and {rates[1]:.4e} per s; "
         f"(float32-pipe, MUFU) instructions from SASS: " + ", ".join(
             f"{k} {v}" for k, v in costs.items()))
+    phase16_off_default(dev, card)
 
     print(card)
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=main_path_launches, max_abs_err=max(errs), ms=k_total,
-             plain_ms=p_total, bound_ms=k1_bound, bound_by=k1_bounds[-1][1],
-             library_ms=None, wrapper_ms=w_total),
+        dict(KERNEL, launches=main_path_launches, max_abs_err=max(errs), ms=k1_sums["qk"],
+             plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
+             library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"]),
         dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"]),

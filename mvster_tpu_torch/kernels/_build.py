@@ -134,6 +134,7 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p, p, p,           # ref, src, hypo, rot, trans, out
             i, i, i, i, i, i, i,        # B, V, D, H, W, C, G
             i, f, f,                    # attn_fuse_d, attn_temp, sqrt_c
+            i, i, i, i, i,              # maxg, split, pixels, threads, smem bytes
             p,                          # cudaStream_t
         ]
         lib.mvster_warp_correlate.restype = i
@@ -149,6 +150,7 @@ def load_library() -> ctypes.CDLL:
         lib.mvster_sinkhorn_fwd.argtypes = [
             p, p, p,                    # pred, gt_idx, loss
             i, i, i, i, f,              # B, N, D, iters, eps
+            i,                          # capacity (MAXD)
             p,                          # cudaStream_t
         ]
         lib.mvster_sinkhorn_fwd.restype = i
@@ -156,6 +158,7 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p,                 # pred, gt_idx, g, dpred
             i, i, i, i, f,              # B, N, D, iters, eps
             i, i,                       # threads per block, shared-memory bytes
+            i,                          # capacity (MAXD)
             p,                          # cudaStream_t
         ]
         lib.mvster_sinkhorn_bwd.restype = i

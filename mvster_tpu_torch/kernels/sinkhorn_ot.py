@@ -35,7 +35,8 @@ from mvster_tpu_torch.kernels._build import check_tensor, load_library, raise_on
 
 _LOG_EPS = math.log(1e-12)
 _LOG_ONE = math.log(1.0 + 1e-12)
-SUPPORTED_D = (4, 8)  # the kernels' template instances: dtu_default's 8, 8, 4, 4
+MAX_D = 64  # the most bins K4/K5 take (dtu_default uses 8, 8, 4, 4)
+CAPACITIES = (4, 8, 16, 32, 64)  # the kernels' template instances (MAXD)
 SMEM_BYTES_MAX = 232_448  # dynamic shared memory one block may have (227 KB)
 _SMEM_DEFAULT = 48 * 1024  # what a launch gets without raising its limit
 _BWD_THREADS = (128, 64, 32)  # K5's block sizes, largest first
@@ -126,6 +127,14 @@ def sinkhorn_pixels_bwd_plain(pred: torch.Tensor, gt_idx: torch.Tensor,
     return dlog_nu / (pred + 1e-12)
 
 
+def capacity(d: int) -> int:
+    """The kernel instance (MAXD, csrc/sinkhorn_ot.cu) that runs D bins: the
+    smallest capacity that holds D; raises outside 1 <= D <= MAX_D."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the CUDA Sinkhorn kernels take 1 <= D <= {MAX_D} bins, got D={d}")
+    return next(m for m in CAPACITIES if d <= m)
+
+
 def bwd_launch_shape(d: int, iters: int) -> tuple[int, int]:
     """K5's (threads per block, dynamic shared-memory bytes) for D and
     iters: the (u, v) history takes iters * 2 * D floats per thread; the
@@ -150,8 +159,7 @@ def _check_inputs(pred, gt_idx, g=None):
     if pred.dim() != 3:
         raise ValueError(f"pred must be (B, D, N), got {tuple(pred.shape)}")
     b, d, n = pred.shape
-    if d not in SUPPORTED_D:
-        raise ValueError(f"the CUDA Sinkhorn kernels support D in {SUPPORTED_D}, got D={d}")
+    capacity(d)
     check_tensor("pred", pred, pred.device, torch.float32, (b, d, n))
     check_tensor("gt_idx", gt_idx, pred.device, torch.int32, (b, n))
     if g is not None:
@@ -172,7 +180,7 @@ def sinkhorn_fwd(pred: torch.Tensor, gt_idx: torch.Tensor, iters: int,
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mvster_sinkhorn_fwd(pred.data_ptr(), gt_idx.data_ptr(), loss.data_ptr(),
-                                     b, n, d, int(iters), float(eps), stream)
+                                     b, n, d, int(iters), float(eps), capacity(d), stream)
     raise_on_error(lib, rc, "mvster_sinkhorn_fwd")
     sinkhorn_fwd.launches += 1
     return loss
@@ -193,7 +201,7 @@ def sinkhorn_bwd(pred: torch.Tensor, gt_idx: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mvster_sinkhorn_bwd(pred.data_ptr(), gt_idx.data_ptr(), g.data_ptr(),
                                      dpred.data_ptr(), b, n, d, int(iters), float(eps),
-                                     threads, smem, stream)
+                                     threads, smem, capacity(d), stream)
     raise_on_error(lib, rc, "mvster_sinkhorn_bwd")
     sinkhorn_bwd.launches += 1
     return dpred

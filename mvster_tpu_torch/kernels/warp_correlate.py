@@ -9,19 +9,26 @@ fused_cost_volume_geom).  A CPU tensor takes the plain PyTorch version,
 
 `fused_cost_volume.launches` counts kernel launches (`launch` adds one
 per launch), so a run can show that its main path went through the kernel.
+`plan_launch` decides, in Python, how the kernel maps threads to (pixel,
+depth plane) pairs and which of its instances runs: any 1 <= D <= 256
+and any G that divides C, G <= 64.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from mvster_tpu_torch.core.geometry import plane_sweep_rt
 from mvster_tpu_torch.kernels.cost_volume import plain_cost_volume
 
-# (D, G) pairs the kernel is instantiated for: the dtu_default stage set
-SUPPORTED_DG = frozenset({(4, 4), (4, 8), (8, 4), (8, 8)})
+THREADS = 256  # csrc/warp_correlate.cu kMaxThreads: P * D threads a block, at most
+MAX_D = THREADS  # one block holds at least one pixel's D planes
+CAPACITIES = (4, 8, 16, 32, 64)  # the kernel's MAXG instances
+MAX_G = CAPACITIES[-1]
 
 
 def fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
@@ -32,6 +39,41 @@ def fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
         group_cor=True, group_dim=group_dim, attn_temp=attn_temp,
         attn_fuse_d=attn_fuse_d,
     )
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 runs one stage (csrc/warp_correlate.cu)."""
+
+    maxg: int     # the template capacity of the per-group arrays, >= G
+    split: int    # groups a float4 load spans: 1 (C/G % 4 == 0), 2 (C/G == 2),
+    #               4 (C/G == 1); 0 = scalar loads
+    pixels: int   # reference pixels a block (P)
+    threads: int  # P * D: one thread per (pixel, depth plane)
+    smem: int     # dynamic shared bytes: the (D, P) logits of a view, twice
+
+
+@functools.lru_cache(maxsize=None)
+def plan_launch(d: int, c: int, g: int, vec4: bool = True) -> LaunchPlan:
+    """K1's launch for D planes, C channels and G groups: P = 256 // D
+    pixels a block (at least 1), float4 loads where C % 4 == 0 (and vec4,
+    the pointers' alignment) and C/G is 1, 2 or a multiple of 4 (every G
+    that divides the FPN's power-of-two widths), the smallest capacity
+    that holds G.  Raises ValueError for D outside [1, 256], G outside
+    [1, 64] or G not dividing C."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the CUDA cost-volume kernel takes 1 <= D <= {MAX_D} "
+                         f"depth planes, got D={d}")
+    if not 1 <= g <= MAX_G or c % g:
+        raise ValueError(f"the CUDA cost-volume kernel takes 1 <= G <= {MAX_G} "
+                         f"groups that divide C; got G={g}, C={c}")
+    sub = c // g
+    split = 0
+    if vec4 and c % 4 == 0:
+        split = 1 if sub % 4 == 0 else {1: 4, 2: 2}.get(sub, 0)
+    pixels = max(1, THREADS // d)
+    threads = pixels * d
+    return LaunchPlan(next(m for m in CAPACITIES if g <= m), split, pixels, threads,
+                      2 * threads * 4)
 
 
 def _check_tensors(ref_feat, **tensors):
@@ -69,11 +111,7 @@ def _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim)
     if tuple(rot.shape) != (v, b, 3, 3) or tuple(trans.shape) != (v, b, 3):
         raise ValueError(f"rot {tuple(rot.shape)}, trans {tuple(trans.shape)} "
                          f"do not match V={v}, B={b}")
-    if (d, group_dim) not in SUPPORTED_DG or c % group_dim:
-        raise ValueError(
-            f"the CUDA kernel supports (D, G) in {sorted(SUPPORTED_DG)} with C "
-            f"a multiple of G; got D={d}, G={group_dim}, C={c}"
-        )
+    plan_launch(d, c, group_dim)  # raises for a D or G the kernel does not take
 
 
 def plane_sweep_rts(ref_proj, src_projs):
@@ -98,6 +136,8 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
     b, h, w, c = ref_feat.shape
     v = src_feats.shape[0]
     d = depth_hypo.shape[1]
+    plan = plan_launch(d, c, group_dim,
+                       ref_feat.data_ptr() % 16 == 0 and src_feats.data_ptr() % 16 == 0)
     out = torch.empty((b, d, h, w, group_dim), dtype=torch.float32,
                       device=ref_feat.device)
     with torch.cuda.device(ref_feat.device):
@@ -106,7 +146,8 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
             ref_feat.data_ptr(), src_feats.data_ptr(), depth_hypo.data_ptr(),
             rot.data_ptr(), trans.data_ptr(), out.data_ptr(),
             b, v, d, h, w, c, group_dim, int(bool(attn_fuse_d)),
-            float(attn_temp), math.sqrt(c), stream,
+            float(attn_temp), math.sqrt(c), plan.maxg, plan.split, plan.pixels,
+            plan.threads, plan.smem, stream,
         )
     raise_on_error(lib, rc, "mvster_warp_correlate")
     fused_cost_volume.launches += 1

@@ -4,8 +4,11 @@ CPU: kernels/cost_volume.build_cost_volume (plain PyTorch) against the JAX
 XLA formulation at atol 1e-5, and against the JAX Pallas kernel run in
 interpret mode at rtol 1e-4 / atol 1e-5 (that entry reassociates its
 coordinate arithmetic by up to ~1e-4 px, tests/test_pallas_warp.py).
+CPU, within the port: the kernel's launch planner (plan_launch), which
+picks its instance and block for every D and G.
 CUDA (marked `cuda`, skipped without a card): the hand-written kernel
-against its plain version on the card at atol/rtol 1e-4.
+against its plain version on the card at atol/rtol 1e-4, at the DTU-mid
+stages and at other depth and group counts.
 """
 
 import numpy as np
@@ -48,6 +51,49 @@ def test_plain_matches_jax_xla(attn_fuse_d, group_cor):
               attn_fuse_d=attn_fuse_d)
     np.testing.assert_allclose(_port(inp, **kw), _jax(inp, "xla", **kw),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+@pytest.mark.parametrize("d,g,c", [(2, 2, 8), (3, 2, 8), (16, 16, 64)])
+def test_plain_matches_jax_xla_at_other_counts(d, g, c, attn_fuse_d):
+    # depth and group counts off dtu_default's (8, 8, 4, 4) / (8, 8, 4, 4)
+    inp = stage_inputs(10 + d, 32, 40, c, d, nsrc=2)
+    kw = dict(group_cor=True, group_dim=g, attn_temp=2.0, attn_fuse_d=attn_fuse_d)
+    np.testing.assert_allclose(_port(inp, **kw), _jax(inp, "xla", **kw),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dcg,want", [
+    # (D, C, G) -> (capacity, float4 split, pixels a block); threads = P * D
+    ((8, 64, 8), (8, 1, 32)),     # DTU-mid stage 1: C/G = 8
+    ((8, 32, 8), (8, 1, 32)),     # stage 2: C/G = 4
+    ((4, 16, 4), (4, 1, 64)),     # stage 3
+    ((4, 8, 4), (4, 2, 64)),      # stage 4: C/G = 2, a float4 spans two groups
+    ((16, 64, 64), (64, 4, 16)),  # C/G = 1: a float4 spans four groups
+    ((3, 8, 2), (4, 1, 85)),      # 255 threads
+    ((2, 16, 16), (16, 4, 128)),
+    ((3, 3, 3), (4, 0, 85)),      # C % 4 != 0: scalar loads
+    ((5, 12, 2), (4, 0, 51)),     # C/G = 6: scalar loads
+    ((1, 8, 1), (4, 1, 256)),
+    ((256, 32, 32), (32, 4, 1)),
+    ((17, 64, 32), (32, 2, 15)),
+])
+def test_plan_launch(dcg, want):
+    d, c, g = dcg
+    plan = warp_correlate.plan_launch(d, c, g)
+    assert (plan.maxg, plan.split, plan.pixels) == want
+    assert plan.threads == plan.pixels * d <= warp_correlate.THREADS <= 1024
+    assert plan.smem == 2 * plan.threads * 4  # two (D, P) float buffers of logits
+    assert plan.maxg >= g
+    # misaligned pointers take the scalar loads, at the same block
+    assert warp_correlate.plan_launch(d, c, g, False) == plan._replace(split=0)
+
+
+@pytest.mark.parametrize("d,c,g", [(4, 8, 3), (4, 12, 8), (4, 128, 128), (4, 8, 0),
+                                   (0, 8, 4), (257, 8, 4)])
+def test_plan_launch_rejects_what_the_kernel_does_not_take(d, c, g):
+    with pytest.raises(ValueError, match="takes"):
+        warp_correlate.plan_launch(d, c, g)
 
 
 @pytest.mark.parametrize("attn_fuse_d", [True, False])
@@ -154,12 +200,30 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+@pytest.mark.parametrize("shape", [
+    (48, 64, 16, 2, 2), (48, 64, 16, 3, 2), (48, 64, 64, 16, 16), (48, 64, 16, 2, 16),
+    (48, 64, 32, 3, 16), (40, 56, 64, 16, 2),
+    (32, 48, 3, 3, 3), (32, 48, 3, 16, 1),  # C = 3: the scalar path
+])
+def test_kernel_takes_other_counts_on_card(cuda_device, shape, attn_fuse_d):
+    """Depth and group counts off dtu_default: D in {2, 3, 16}, G in {2, 16}
+    (every float4 split) and C = 3."""
+    test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     inp = stage_inputs(5, 32, 32, 8, 2, nsrc=1)
     args = [t(inp[k], cuda_device) for k in
             ("ref", "src", "ref_proj", "src_projs", "hypo")]
-    with pytest.raises(ValueError, match="supports"):
-        warp_correlate.fused_cost_volume(*args, 4, 2.0, True)  # D=2
+    with pytest.raises(ValueError, match="groups that divide C"):
+        warp_correlate.fused_cost_volume(*args, 3, 2.0, True)  # G=3 does not divide C=8
+    inp128 = stage_inputs(5, 16, 16, 128, 2, nsrc=1)
+    with pytest.raises(ValueError, match="G <= 64"):
+        warp_correlate.fused_cost_volume(
+            *[t(inp128[k], cuda_device) for k in
+              ("ref", "src", "ref_proj", "src_projs", "hypo")], 128, 2.0, True)
     inp = stage_inputs(5, 32, 32, 8, 4, nsrc=1)
     args = [t(inp[k], cuda_device) for k in
             ("ref", "src", "ref_proj", "src_projs", "hypo")]

@@ -69,6 +69,9 @@ def _port(gt, hypo, attn, mask, iters, eps):
     (8, 1, 16, 16, 6, 1.0, 0.3),
     (8, 2, 8, 16, 10, 0.7, 0.3),  # eps != 1: cost = (|i-j| / eps) * eps
     (4, 1, 8, 8, 8, 1.0, 1.1),    # all-zero mask: the mean's denominator clamps to 1
+    (2, 2, 8, 8, 10, 1.0, 0.3),   # depth counts off dtu_default's 8, 8, 4, 4
+    (3, 1, 8, 16, 10, 1.0, 0.3),
+    (16, 1, 8, 8, 10, 1.0, 0.3),
 ])
 def test_fused_loss_matches_pallas_interpret(d, b, h, w, iters, eps, mask_p):
     gt, hypo, attn, mask = _inputs(d + iters, b, d, h, w, mask_p=mask_p)
@@ -179,6 +182,22 @@ def test_bwd_launch_shape_fits_the_history_in_shared_memory():
         sinkhorn_ot.bwd_launch_shape(8, 114)
 
 
+@pytest.mark.parametrize("d,want", [(1, (4, 128, 128 * 80)), (3, (4, 128, 128 * 240)),
+                                    (16, (16, 32, 32 * 1280)), (64, (64, 32, 32 * 5120))])
+def test_capacity_and_bwd_launch_shape_at_other_d(d, want):
+    """The kernel instance (capacity) for D bins, and K5's block and shared
+    bytes at 10 iterations: above 48 KB at D = 16 and 64, so the launch
+    raises the block's limit."""
+    assert (sinkhorn_ot.capacity(d), *sinkhorn_ot.bwd_launch_shape(d, 10)) == want
+    assert sinkhorn_ot.capacity(d) in sinkhorn_ot.CAPACITIES
+
+
+@pytest.mark.parametrize("d", [0, 65])
+def test_capacity_rejects_d_outside_the_kernels(d):
+    with pytest.raises(ValueError, match="1 <= D <= 64"):
+        sinkhorn_ot.capacity(d)
+
+
 # (H, W, D) of each dtu_default stage at 512x640, batch 2
 CARD_SHAPES = [(64, 80, 8), (128, 160, 8), (256, 320, 4), (512, 640, 4)]
 
@@ -226,6 +245,14 @@ def test_kernels_match_plain_at_other_iters_and_eps_on_card(cuda_device, d, iter
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 16, 64])
+def test_kernels_take_other_d_on_card(cuda_device, d):
+    """Depth counts off dtu_default: the capacities 4, 16 and 64, with D
+    below its capacity at 2 and 3."""
+    test_kernels_match_plain_on_card(cuda_device, (32, 48, d))
+
+
+@pytest.mark.cuda
 def test_function_grad_matches_plain_autograd_on_card(cuda_device):
     gt, hypo, attn, mask = _inputs(8, 2, 8, 128, 160)
     args = [t(x, cuda_device) for x in (gt, hypo)]
@@ -245,8 +272,8 @@ def test_function_grad_matches_plain_autograd_on_card(cuda_device):
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     pred, gt_idx, g = _card_inputs((16, 16, 4), cuda_device)
-    with pytest.raises(ValueError, match="support D"):
-        sinkhorn_ot.sinkhorn_fwd(torch.cat([pred, pred[:, :1]], dim=1), gt_idx, 10)
+    with pytest.raises(ValueError, match="1 <= D <= 64"):
+        sinkhorn_ot.sinkhorn_fwd(pred.repeat(1, 17, 1)[:, :65].contiguous(), gt_idx, 10)
     with pytest.raises(ValueError, match="float32"):
         sinkhorn_ot.sinkhorn_fwd(pred.double(), gt_idx, 10)
     with pytest.raises(ValueError, match="int32"):
