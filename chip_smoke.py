@@ -58,12 +58,16 @@ Phases, one line each, any failure exits non-zero:
      1e-5, gradients within the float32 noise that a float64 step on the
      card (plain warp) measures, as tests/_torch_parity.check_grads holds
      them
- 15. times: per stage K4, K5, their plain versions and both backends' loss
-     forward+backward; the DTU-mid train step with pallas and with xla; the
-     BlendedMVS step and its peak memory; CUDA events, in turns
+ 15. times: per stage K4 and K5 (queued behind a spin of the card and back
+     to back) beside their bound and its share, their plain versions and
+     both backends' loss forward+backward; the DTU-mid train step with
+     pallas and with xla; the BlendedMVS step and its peak memory; CUDA
+     events, in turns
  16. off-default counts: K1 against plain at 64x80, C=64, (D, G) in
      (2, 2), (3, 2), (16, 16), both attention modes (atol/rtol 1e-4); K4/K5
-     against plain at D in 2, 3, 16, 64 (phase 12's tolerances); an eval
+     against plain at D in 1, 2, 3, 5, 16, 31, 32, 33, 64 at 64x80 and at
+     31x37, and at D <= 8 at 256x320 (phase 12's tolerances), each timed
+     queued at 64x80 against its bound; an eval
      forward at 128x192, 3 views, stage_splits (16, 8, 4, 4) and
      group_cor_dim (16, 8, 4, 2) against the CPU plain path by the stage
      comparator, with 4 K1 launches; and a train step of that model with
@@ -72,8 +76,8 @@ Phases, one line each, any failure exits non-zero:
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
-and K3 for one source view per stage, as one launch covers; K1, K2 and K3
-timed queued, with their back-to-back times beside), and
+and K3 for one source view per stage, as one launch covers; every kernel
+timed queued, with its back-to-back time beside), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -160,7 +164,10 @@ BLEND_FLAGS = ["--dataset", "blendedmvs", "--ot_backend", "pallas", "--nviews",
                "--summary_freq", "1"]
 # phase 16: depth and group counts off dtu_default's (8, 8, 4, 4) / (8, 8, 4, 4)
 OFF_DG = [(2, 2), (3, 2), (16, 16)]  # K1 at the stage-1 shape (C = 64)
-OFF_D = [2, 3, 16, 64]  # K4/K5
+OFF_D = [1, 2, 3, 5, 16, 31, 32, 33, 64]  # K4/K5: every capacity, D below it
+# K4/K5's shapes: B * N no multiple of a block's pixels; a full card (one
+# thread a pixel at some D <= 8); stage 1's, where they are timed
+OFF_OT_SHAPES = [(31, 37), (256, 320), (64, 80)]
 OFF_CONFIG = dict(stage_splits=(16, 8, 4, 4), group_cor_dim=(16, 8, 4, 2))
 OFF_H, OFF_W, OFF_VIEWS = 128, 192, 3
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
@@ -684,11 +691,14 @@ def math_costs(tmp):
 
 
 def ot_work(n, d, costs, iters=OT_ITERS):
-    """K4's and K5's least work for n pixels of D bins, counted from
-    csrc/sinkhorn_ot.cu: (float32-pipe instructions, MUFU instructions,
-    bytes).  Per pixel each counts its expf, logf and divisions at `costs`
-    (math_costs) and the adds and multiplies written in the source, a
-    multiply-add as one FFMA and a sum of D terms as D - 1 adds:
+    """K4's and K5's least work for n pixels of D bins: (float32-pipe
+    instructions, MUFU instructions, bytes).  It counts the algorithm's
+    operations, the steps of the plain versions (sinkhorn_pixels_plain,
+    sinkhorn_pixels_bwd_plain), whatever design runs them: not the shuffles,
+    shared-memory transposes or guards of csrc/sinkhorn_ot.cu.  Per pixel
+    each counts its expf, logf and divisions at `costs` (math_costs) and
+    its adds and multiplies, a multiply-add as one FFMA and a sum of D
+    terms as D - 1 adds:
       K4: D logs and D divisions for the marginals and S; an iteration 2 D^2
           exp and 2 D log, 6 D^2 + 2 D adds; the loss D^2 exp and 3 D^2 + D;
           reads D + 1 words and writes 1.
@@ -725,7 +735,7 @@ def ot_inputs(seed, h, w, d, dev, b=BATCH):
     per-pixel jitter and a softmax attention (B, D, H, W), mask (B, H, W)
     bool with 80% of the pixels valid, from a numpy seed."""
     rng = np.random.default_rng(seed)
-    inv = 1.0 / 935.0 + (1.0 / 425.0 - 1.0 / 935.0) * np.arange(d) / (d - 1)
+    inv = 1.0 / 935.0 + (1.0 / 425.0 - 1.0 / 935.0) * np.arange(d) / max(d - 1, 1)
     hypo = (1.0 / inv)[None, :, None, None] * rng.uniform(0.95, 1.05, size=(b, d, h, w))
     logits = rng.normal(size=(b, d, h, w)) * 3.0
     attn = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
@@ -945,7 +955,8 @@ def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
     from mvster_tpu_torch.models.losses import _sinkhorn_loss, blend_loss, mvs4net_loss
     from mvster_tpu_torch.train.loop import device_batch
 
-    sums = dict(k4=0.0, k5=0.0, p4=0.0, p5=0.0, xla=0.0, fused=0.0, b4=0.0, b5=0.0)
+    sums = dict(k4=0.0, k5=0.0, p4=0.0, p5=0.0, xla=0.0, fused=0.0, b4=0.0, b5=0.0,
+                qk4=0.0, qk5=0.0)
     by4 = by5 = "operations"
     for si, (gt, hypo, attn, mask, pred, gt_idx, g) in enumerate(per_stage):
         h, w, _, d, _ = STAGES[si]
@@ -965,9 +976,13 @@ def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
         )
         order = ["p4", "k4", "p5", "k5", "xla", "fused"]
         times = {k: [] for k in fns}
+        queued = {k: [] for k in ("k4", "k5")}
         for name in order + order[::-1]:
             times[name].append(cuda_ms(fns[name], iters=10))
+            if name in queued:
+                queued[name].append(queued_ms(fns[name], iters=20))
         ms = {k: sum(v) / len(v) for k, v in times.items()}
+        ms.update({"q" + k: sum(v) / len(v) for k, v in queued.items()})
         (f4, s4, n4), (f5, s5, n5) = ot_work(BATCH * h * w, d, costs)
         b4, by4 = ot_bound(f4, s4, n4, rates)
         b5, by5 = ot_bound(f5, s5, n5, rates)
@@ -975,15 +990,22 @@ def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
             sums[k] += ms[k]
         sums["b4"] += b4
         sums["b5"] += b5
-        log(f"[15 times] stage{si + 1} {(h, w)} D={d} B={BATCH}: K4 {ms['k4']:.4f} ms (plain "
-            f"{ms['p4']:.4f}, bound {b4:.4f} by {by4}: {f4:.4e} float32-pipe and {s4:.4e} "
-            f"MUFU instructions); K5 {ms['k5']:.4f} ms (plain {ms['p5']:.4f}, bound {b5:.4f}: "
-            f"{f5:.4e} float32-pipe, {s5:.4e} MUFU); loss forward+backward: pallas (K4+K5) "
-            f"{ms['fused']:.4f} ms, xla (checkpointed plain) {ms['xla']:.4f} ms | {card}")
-    log(f"[15 times] over the four stages: K4 {sums['k4']:.4f} ms (plain {sums['p4']:.4f}, "
-        f"bound {sums['b4']:.4f}), K5 {sums['k5']:.4f} ms (plain {sums['p5']:.4f}, bound "
-        f"{sums['b5']:.4f}); loss forward+backward pallas {sums['fused']:.4f} ms vs xla "
-        f"{sums['xla']:.4f} ms | {card}")
+        p4, p5 = (sinkhorn_ot.plan_launch(k, d, OT_ITERS, BATCH * h * w) for k in ("fwd", "bwd"))
+        log(f"[15 times] stage{si + 1} {(h, w)} D={d} B={BATCH}, K4 {p4.design} x {p4.threads}, "
+            f"K5 {p5.design} x {p5.threads} ({p5.smem} B): K4 "
+            f"{ms['qk4']:.4f} ms queued ({ms['k4']:.4f} back to back), bound {b4:.4f} by {by4} "
+            f"({f4:.4e} float32-pipe and {s4:.4e} MUFU instructions), {100 * b4 / ms['qk4']:.1f}% "
+            f"of the bound, plain {ms['p4']:.4f}; K5 {ms['qk5']:.4f} ms queued "
+            f"({ms['k5']:.4f}), bound {b5:.4f} ({f5:.4e} float32-pipe, {s5:.4e} MUFU), "
+            f"{100 * b5 / ms['qk5']:.1f}% of the bound, plain {ms['p5']:.4f}; loss "
+            f"forward+backward: pallas (K4+K5) {ms['fused']:.4f} ms, xla (checkpointed plain) "
+            f"{ms['xla']:.4f} ms | {card}")
+    log(f"[15 times] over the four stages, queued (back to back): K4 {sums['qk4']:.4f} "
+        f"({sums['k4']:.4f}) ms, bound {sums['b4']:.4f}, {100 * sums['b4'] / sums['qk4']:.1f}% "
+        f"of it, plain {sums['p4']:.4f}; K5 {sums['qk5']:.4f} ({sums['k5']:.4f}) ms, bound "
+        f"{sums['b5']:.4f}, {100 * sums['b5'] / sums['qk5']:.1f}% of it, plain {sums['p5']:.4f}; "
+        f"loss forward+backward pallas {sums['fused']:.4f} ms vs xla {sums['xla']:.4f} ms "
+        f"| {card}")
 
     steps = {b: train_step_fn(dev, mvs4net_loss, b, dtu) for b in ("xla", "pallas")}
     for fn in steps.values():
@@ -1014,10 +1036,11 @@ def phase15_times(dev, per_stage, dtu, blend_root, card, rates, costs):
     return sums, by4, by5
 
 
-def phase16_off_default(dev, card):
+def phase16_off_default(dev, card, rates, costs):
     """Depth and group counts off dtu_default: K1, K4 and K5 against their
-    plain versions, and one eval forward and one train step per OT backend
-    of a model whose stages take them (OFF_CONFIG)."""
+    plain versions (K4/K5 also at a ragged shape, and timed against their
+    bound), and one eval forward and one train step per OT backend of a
+    model whose stages take them (OFF_CONFIG)."""
     h, w, c = STAGES[0][:3]
     err1 = 0.0
     for i, (d, g) in enumerate(OFF_DG):
@@ -1035,26 +1058,42 @@ def phase16_off_default(dev, card):
             torch.testing.assert_close(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)
             err1 = max(err1, (got - want).abs().max().item())
     err4 = err5 = 0.0
+    timed = []
     for i, d in enumerate(OFF_D):
-        gt, hypo, attn, mask = ot_inputs(600 + i, h, w, d, dev)
-        pred = attn.reshape(BATCH, d, h * w)
-        gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(BATCH, h * w).int()
-        m = mask.reshape(BATCH, h * w).float()
-        g = m / m.sum().clamp(min=1.0)
-        loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
-        dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
-        want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
-        dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
-            raise AssertionError(f"D={d}: non-finite K4/K5 output")
-        torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
-        _assert_dpred_close(dpred, dwant)
-        err4 = max(err4, (loss - want).abs().max().item())
-        err5 = max(err5, (dpred - dwant).abs().max().item())
+        for oh, ow in OFF_OT_SHAPES:
+            if oh * ow > 64 * 80 and d > 8:
+                continue  # the plain version's (B, D, D, N) grows with D^2
+            gt, hypo, attn, mask = ot_inputs(600 + i, oh, ow, d, dev)
+            pred = attn.reshape(BATCH, d, oh * ow)
+            gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(BATCH, oh * ow).int()
+            m = mask.reshape(BATCH, oh * ow).float()
+            g = m / m.sum().clamp(min=1.0)
+            loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
+            dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
+            want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
+            dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
+                raise AssertionError(f"D={d} at {oh}x{ow}: non-finite K4/K5 output")
+            torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
+            _assert_dpred_close(dpred, dwant)
+            err4 = max(err4, (loss - want).abs().max().item())
+            err5 = max(err5, (dpred - dwant).abs().max().item())
+        # timed at the last shape (64x80, as stage 1), queued
+        q4 = queued_ms(lambda: sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS), iters=20)
+        q5 = queued_ms(lambda: sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS), iters=20)
+        (f4, s4, n4), (f5, s5, n5) = ot_work(BATCH * oh * ow, d, costs)
+        b4, b5 = ot_bound(f4, s4, n4, rates)[0], ot_bound(f5, s5, n5, rates)[0]
+        timed.append(f"D={d} {sinkhorn_ot.plan_launch('fwd', d, OT_ITERS, BATCH * oh * ow).design} "
+                     f"K4 {q4:.4f} "
+                     f"({100 * b4 / q4:.1f}% of {b4:.4f}) K5 {q5:.4f} ({100 * b5 / q5:.1f}% of "
+                     f"{b5:.4f})")
     log(f"[16 off-default] K1 vs plain at {h}x{w}, C={c}, (D, G) in {OFF_DG}, both attention "
-        f"modes: max|d| {err1:.3e} (atol=rtol={KERNEL_TOL}); K4/K5 vs plain at {h}x{w}, batch "
-        f"{BATCH}, D in {OFF_D}: max|d| {err4:.3e} and {err5:.3e}")
+        f"modes: max|d| {err1:.3e} (atol=rtol={KERNEL_TOL}); K4/K5 vs plain at "
+        f"{OFF_OT_SHAPES}, batch {BATCH}, D in {OFF_D}: max|d| {err4:.3e} and {err5:.3e}")
+    log(f"[16 off-default] K4/K5 ms queued at {OFF_OT_SHAPES[-1][0]}x{OFF_OT_SHAPES[-1][1]}, "
+        f"batch {BATCH}, {OT_ITERS} iterations, against the bound: " + "; ".join(timed)
+        + f" | {card}")
 
     sample = synthetic_sample(16, nviews=OFF_VIEWS, h=OFF_H, w=OFF_W)
     model_cpu = build_model(seed=16, **OFF_CONFIG)
@@ -1218,7 +1257,7 @@ def main():
         f"(nvidia-smi's maximum SM clock) = {rates[0]:.4e} and {rates[1]:.4e} per s; "
         f"(float32-pipe, MUFU) instructions from SASS: " + ", ".join(
             f"{k} {v}" for k, v in costs.items()))
-    phase16_off_default(dev, card)
+    phase16_off_default(dev, card, rates, costs)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1231,12 +1270,12 @@ def main():
         dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"]),
-        dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["k4"],
+        dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
-             library_ms=None),
-        dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["k5"],
+             library_ms=None, back_to_back_ms=ot_sums["k4"]),
+        dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
-             library_ms=None),
+             library_ms=None, back_to_back_ms=ot_sums["k5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

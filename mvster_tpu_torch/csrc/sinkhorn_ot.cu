@@ -19,36 +19,80 @@
 //
 // Each log-sum-exp subtracts its maximum first, as the TPU kernel does, and
 // uses the accurate expf and logf (the library is built without
-// --use_fast_math).
+// --use_fast_math).  The GT bin index (argmin over D of |hypo - gt|, first
+// minimum) comes from the wrapper, as the JAX package computes it outside
+// its kernel too.
 //
-// Layout: pred is the model's attention (B, D, N) as it lies, N = H * W; one
-// thread per pixel, so thread p reads pred[b, d, p] for each d and
-// neighbouring threads read neighbouring addresses.  D is a runtime
-// argument, 1 <= D <= 64; the per-bin arrays (u, v, log nu, log mu, the
-// cost row) are sized by a template capacity MAXD in {4, 8, 16, 32, 64},
-// the smallest that holds D, and every loop over bins runs k = 0 .. D - 1
-// in order.  In the instances of up to 8 bins the loops are
-// unrolled, so the arrays stay in registers; above that they are plain
-// loops and the arrays live in local memory.  D = 4 and D = 8, the
-// counts of dtu_default, run instances (EXACT) in which D is the constant
-// MAXD, so the guards fold away and the code is that of a kernel
-// instantiated on D alone.  The
-// GT bin index (argmin over D of |hypo - gt|, first minimum) comes from the
-// wrapper, as the JAX package computes it outside its kernel too.
+// What bounds them on the H100: operations, not bytes.  K4 reads D + 1
+// words a pixel and does iters * (2 D^2 exp + 2 D log) + D^2 exp; K5 about
+// twice that.  An accurate expf is ~7 float32-pipe instructions and one
+// MUFU, a logf ~15, so the float32 pipe (128 a clock per SM) sets the
+// bound, and every exp and log is a chain of dependent instructions.
 //
-// K5 needs (u_t, v_t) of every iteration in its reverse sweep: iters * 2 * D
-// floats per thread, 640 bytes at D = 8 and iters = 10, too many for
-// registers.  They live in dynamic shared memory, (iters, 2, D, threads)
-// with the thread index fastest, so a warp's 32 accesses fall in 32 banks.
-// The wrapper sizes the block from iters (at most 48 KB where a block of 32
-// threads allows it) and passes the bytes; above 48 KB the launch first
-// raises the kernel's dynamic shared-memory limit.
+// Two designs; kernels/sinkhorn_ot.plan_launch picks one per launch.
 //
-// What bounds them on the H100: exp and log, not bytes.  K4 moves D + 2
-// words per pixel and does iters * (2 D^2 exp + 2 D log) + D^2 exp + D log
-// special-function operations; K5 about twice that.  They run on the SMs'
-// special-function units (MUFU, 16 per clock per SM).  This first design is
-// the simple one: one thread does a pixel's whole iteration in series.
+// "lanes", D lanes a pixel (every D <= 32 unless the rule below says
+// otherwise).  A pixel gets L threads, L the smallest power of two >= D,
+// and lane k owns bin k: u_k, v_k, log nu_k, log mu_k and the row S_k (S is
+// symmetric, so that row is also its column).  Lanes k >= D hold no bin.
+// It replaces, where it is faster, the first design, in which one thread
+// walked a pixel's D^2 exps of an iteration in series: at the D = 8 stages
+// that left a third of the card idle (80 blocks at 64x80) and every SM a
+// few warps to hide the MUFU and FMA latencies of those chains, and K5's
+// history of 2 iters D floats a thread capped an SM at ~10 warps.  With
+// lanes those stages get 8x the threads, each chain is D times shorter,
+// and K5's history is 2 iters floats a lane.  A pixel's L lanes are
+// contiguous in the warp (shuffles of width L, 32 / L pixels a warp), so
+// lane k indexes its pixel's lanes and its transpose tile by k alone; a
+// pixel-fastest order would read each bin's row of pred in runs of 32 / L
+// floats, the same sectors.  The grid is (pixel blocks, B).
+//
+// "thread", one thread a pixel (the first design, kept as it was): D in
+// 33..64, and where the pixels fill the card (B * N >= 132 x 1024; K4 at
+// D = 5 from 40,960) at 3 <= D <= 8 for K4 and 3 <= D <= 5 for K5, as
+// measured (kernels/sinkhorn_ot.THREAD_FROM).  There it already keeps the
+// SMs issuing every cycle (D independent chains a thread), and lanes only
+// add their exchange: 9% more instructions a pixel at D = 4 (SASS), and
+// idle lanes where D is no power of two.  Measured in turns on one card
+// (scripts/torch_sinkhorn_ab.py, PERF.md): lanes 10-12% slower at D = 4
+// from 163,840 pixels on, 1.3-2.5x faster below 41,000.  K5's history
+// caps the thread design's occupancy from D = 6 on, so there lanes win at
+// every size.
+//
+// With lanes the order of every sum is the first design's:
+//   v_k: lane k gathers u_0 .. u_{D-1} (D shuffles) and takes the max over
+//        i, then s = sum_i expf((S_ik + u_i) - m) in i order; u_k the same
+//        from v.
+//   K4:  lane r sums its row sum_c exp(S_rc + u_r + v_c) cost_rc in c
+//        order; the D row sums add up in r order (shuffles, on every lane;
+//        lane 0 stores).  That order differs from the first design's flat
+//        (r, c) sum: K4 agrees with plain within its tolerance, not bitwise.
+//   K5:  a sum over a column of a D x D matrix (the plan's dv, the row
+//        softmax P's sum_r du_r P_rc) goes through a per-pixel tile in
+//        shared memory: the lane of row r writes its D entries, __syncwarp
+//        (a pixel's lanes are in one warp), the lane of column c adds them
+//        in r order.  The column softmax Q is the mirror.  The tile's rows
+//        are L + 1 floats apart, so neither its row nor its column accesses
+//        fall twice in one bank.
+// So K5 equals the first design's bitwise where nvcc fuses the same
+// multiply-adds (it does at every D when both are built with -fmad=false);
+// built as the library is, they differ by ~1e-9 at D = 4 and 8.
+// K5 keeps (u_t, v_t) of every iteration for its reverse sweep in dynamic
+// shared memory, (iters, 2, threads) with the thread fastest, then the
+// tiles: 4 (2 iters + L + 1) bytes a thread, 29 KB for 256 threads at D = 8
+// and 10 iterations.  The planner sizes the block: the largest of 256,
+// 128, 64, 32 threads within 48 KB, else 32 threads with the kernel's
+// limit raised.
+//
+// In both designs the per-bin arrays have a template capacity (lanes: L;
+// thread: 4, 8 or 64) and every loop over bins is unrolled over it with
+// each step under k < D, so up to 32 they are indexed by constants and
+// stay in registers; the thread design's capacity 64 is a plain loop, its
+// arrays in local memory.  D = 4 and D = 8, the counts of dtu_default, run
+// instances in which D is the constant capacity, so the guards fold away.
+// With lanes no thread returns early: a tail pixel's lanes, and lanes
+// k >= D, reach every full-mask __shfl_sync and __syncwarp with their
+// loads and stores masked.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,20 +100,22 @@
 
 namespace {
 
-constexpr int kFwdThreads = 128;
+constexpr int kThreads = 256;   // lanes: K4's block; K5's largest
+constexpr int kThreadFwd = 128;  // thread: K4's block
+constexpr unsigned kFull = 0xffffffffu;
 // math.log(1.0 + 1e-12) and math.log(1e-12), rounded to float32 as the
 // JAX package's kernel and the plain version round them
 constexpr float kLogOne = (float)1.000088900581841e-12;
 constexpr float kLogEps = (float)-27.631021115928547;
 
-// Calls f(k) for k = 0 .. D - 1, in order.  In the instances of up to 8
-// bins the loop is unrolled over the capacity, each call under k < D, so
-// the arrays of MAXD floats are indexed by constants and stay in registers
-// (at D = MAXD these are the operations of a kernel instantiated on D);
-// above 8 it is a plain loop and those arrays live in local memory.
+// Calls f(k) for k = 0 .. D - 1, in order.  Up to 32 bins the loop is
+// unrolled over the capacity, each call under k < D, so arrays of MAXD
+// floats are indexed by constants and stay in registers (at D = MAXD these
+// are the operations of a kernel instantiated on D); above that it is a
+// plain loop and those arrays live in local memory.
 template <int MAXD, class F>
 __device__ __forceinline__ void bins(int D, F&& f) {
-  if constexpr (MAXD <= 8) {
+  if constexpr (MAXD <= 32) {
 #pragma unroll
     for (int k = 0; k < MAXD; ++k) {
       if (k < D) f(k);
@@ -78,6 +124,174 @@ __device__ __forceinline__ void bins(int D, F&& f) {
     for (int k = 0; k < D; ++k) f(k);
   }
 }
+
+// ---- lanes: L threads a pixel, lane k owns bin k (D <= L <= 32) ----
+
+// x[i] = the value of lane i of this pixel, i < D
+template <int L>
+__device__ __forceinline__ void gather(float val, int D, float* x) {
+  bins<L>(D, [&](int i) { x[i] = __shfl_sync(kFull, val, i, L); });
+}
+
+// log_m - LSE_i(srow[i] + x[i]), the first design's order
+template <int L>
+__device__ __forceinline__ float lse_update(const float* srow, const float* x,
+                                            int D, float log_m) {
+  float m = srow[0] + x[0];
+  bins<L>(D, [&](int i) {
+    if (i > 0) m = fmaxf(m, srow[i] + x[i]);
+  });
+  float s = 0.f;
+  bins<L>(D, [&](int i) { s += expf((srow[i] + x[i]) - m); });
+  return log_m - (logf(s) + m);
+}
+
+// One lane's view of a pixel: its bin k, the row S_k (= the column S_.k),
+// its marginals and the offsets of its loads and stores.  The grid is
+// (pixel blocks, B), so the batch index needs no division.
+template <int L>
+struct Lane {
+  int k;
+  int64_t i;     // the pixel, b * N + n
+  bool pixel;    // n < N
+  bool bin;      // pixel and k < D
+  int64_t off;   // pred[b, k, n]
+  float p;       // pred there (1 where the lane holds no bin)
+  float log_nu, log_mu;
+  float srow[L];  // srow[j] = S_kj = S_jk
+
+  __device__ __forceinline__ Lane(const float* pred, const int* gt_idx, int N,
+                                  int D, float eps) {
+    k = threadIdx.x & (L - 1);
+    const int n = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+    const int64_t b = blockIdx.y;
+    i = b * N + n;
+    pixel = n < N;
+    bin = pixel && k < D;
+    off = (b * D + k) * N + n;
+    p = bin ? pred[off] : 1.f;
+    log_nu = logf(p + 1e-12f);
+    log_mu = pixel && k == gt_idx[i] ? kLogOne : kLogEps;
+    // S_kj = sc[|k - j|] with sc[d] = d / eps, lane d's one division
+    const float sc = (float)k / eps;
+    bins<L>(D, [&](int j) { srow[j] = __shfl_sync(kFull, sc, j > k ? j - k : k - j, L); });
+  }
+
+  // one Sinkhorn iteration: v from u, then u from v; x is scratch
+  __device__ __forceinline__ void iterate(int D, float& u, float& v, float* x) const {
+    gather<L>(u, D, x);
+    v = lse_update<L>(srow, x, D, log_mu);
+    gather<L>(v, D, x);
+    u = lse_update<L>(srow, x, D, log_nu);
+  }
+};
+
+template <int L, bool EXACT>
+__global__ void __launch_bounds__(kThreads)
+sinkhorn_fwd_lanes(const float* __restrict__ pred,  // (B, D, N)
+                   const int* __restrict__ gt_idx,  // (B, N)
+                   float* __restrict__ loss,        // (B, N)
+                   int B, int N, int D, int iters, float eps) {
+  if (EXACT) D = L;  // a constant: every bin guard folds away
+  const Lane<L> ln(pred, gt_idx, N, D, eps);
+  float x[L];
+  float u = 0.f, v = 0.f;
+  for (int t = 0; t < iters; ++t) ln.iterate(D, u, v, x);
+  gather<L>(v, D, x);
+  float row = 0.f;  // row k of the transport cost, in c order
+  bins<L>(D, [&](int c) { row += expf((ln.srow[c] + u) + x[c]) * (ln.srow[c] * eps); });
+  float total = 0.f;  // the row sums in r order
+  bins<L>(D, [&](int r) { total += __shfl_sync(kFull, row, r, L); });
+  if (ln.pixel && ln.k == 0) loss[ln.i] = total;
+}
+
+template <int L, bool EXACT>
+__global__ void __launch_bounds__(kThreads)
+sinkhorn_bwd_lanes(const float* __restrict__ pred,  // (B, D, N)
+                   const int* __restrict__ gt_idx,  // (B, N)
+                   const float* __restrict__ g,     // (B, N)
+                   float* __restrict__ dpred,       // (B, D, N)
+                   int B, int N, int D, int iters, float eps) {
+  if (EXACT) D = L;
+  constexpr int kRow = L + 1;  // the tile's row stride
+  extern __shared__ float smem[];
+  const int nt = blockDim.x, tid = threadIdx.x;
+  float* hist = smem;  // hist[(2 t + which) * nt + tid], which 0 = u_t, 1 = v_t
+  float* tile = smem + (int64_t)2 * iters * nt + (tid / L) * (L * kRow);
+  const Lane<L> ln(pred, gt_idx, N, D, eps);
+  const int k = ln.k;
+  float x[L], row[L];
+  float u = 0.f, v = 0.f;
+  for (int t = 0; t < iters; ++t) {
+    ln.iterate(D, u, v, x);
+    hist[2 * t * nt + tid] = u;
+    hist[(2 * t + 1) * nt + tid] = v;
+  }
+
+  // the loss sum_rc T_rc C_rc, T = exp(S + u + v), gives du_r = g sum_c
+  // T_rc C_rc and dv_c = g sum_r T_rc C_rc
+  const float gi = ln.pixel ? g[ln.i] : 0.f;
+  gather<L>(v, D, x);
+  float du = 0.f;
+  bins<L>(D, [&](int c) {
+    const float tc = expf((ln.srow[c] + u) + x[c]) * (ln.srow[c] * eps);
+    du += tc;
+    tile[k * kRow + c] = tc;
+  });
+  __syncwarp();
+  float dv = 0.f;
+  bins<L>(D, [&](int r) { dv += tile[r * kRow + k]; });
+  du *= gi;
+  dv *= gi;
+
+  // reverse sweep, t = iters - 1 .. 0; du, dv hold the cotangents of u_t, v_t
+  float dlog_nu = 0.f;
+  for (int t = iters - 1; t >= 0; --t) {
+    dlog_nu += du;
+    // u_t = log_nu - LSE_j(S_ij + v_t_j): dv_t_c -= sum_r du_r P_rc, with
+    // P = softmax over c of S_rc + v_t_c; this lane's row r = k
+    gather<L>(hist[(2 * t + 1) * nt + tid], D, x);
+    float m = ln.srow[0] + x[0];
+    bins<L>(D, [&](int c) {
+      if (c > 0) m = fmaxf(m, ln.srow[c] + x[c]);
+    });
+    float s = 0.f;
+    bins<L>(D, [&](int c) {
+      row[c] = expf((ln.srow[c] + x[c]) - m);
+      s += row[c];
+    });
+    __syncwarp();  // the tile's last reads are done
+    bins<L>(D, [&](int c) { tile[k * kRow + c] = row[c] / s; });
+    __syncwarp();
+    float acc = 0.f;  // this lane's column c = k, in r order
+    bins<L>(D, [&](int r) { acc += __shfl_sync(kFull, du, r, L) * tile[r * kRow + k]; });
+    const float dvt = dv - acc;
+    if (t == 0) break;  // u_{-1} = 0 is a constant: nothing flows further
+    // v_t = log_mu - LSE_i(S_ij + u_{t-1}_i): du_{t-1}_r = -sum_c dv_t_c
+    // Q_rc, with Q = softmax over r of S_rc + u_{t-1}_r; this lane's column
+    // c = k
+    gather<L>(hist[2 * (t - 1) * nt + tid], D, x);
+    m = ln.srow[0] + x[0];
+    bins<L>(D, [&](int r) {
+      if (r > 0) m = fmaxf(m, ln.srow[r] + x[r]);
+    });
+    s = 0.f;
+    bins<L>(D, [&](int r) {
+      row[r] = expf((ln.srow[r] + x[r]) - m);
+      s += row[r];
+    });
+    __syncwarp();
+    bins<L>(D, [&](int r) { tile[r * kRow + k] = row[r] / s; });
+    __syncwarp();
+    acc = 0.f;  // this lane's row r = k, in c order
+    bins<L>(D, [&](int c) { acc += __shfl_sync(kFull, dvt, c, L) * tile[k * kRow + c]; });
+    du = -acc;
+    dv = 0.f;
+  }
+  if (ln.bin) dpred[ln.off] = dlog_nu / (ln.p + 1e-12f);
+}
+
+// ---- thread: one thread a pixel (the first design) ----
 
 // The D distinct values of S: sc[k] = k / eps (S_ij = sc[|i - j|]).
 template <int MAXD>
@@ -125,14 +339,13 @@ __device__ __forceinline__ void marginals(const float* P, int64_t N, int gt,
 }
 
 template <int MAXD, bool EXACT>
-__global__ void __launch_bounds__(kFwdThreads)
-sinkhorn_fwd_kernel(const float* __restrict__ pred,  // (B, D, N)
-                    const int* __restrict__ gt_idx,  // (B, N)
-                    float* __restrict__ loss,        // (B, N)
-                    int B, int N, int D, int iters, float eps) {
-  if (EXACT) D = MAXD;  // a constant: every bin guard folds away
+__global__ void __launch_bounds__(kThreadFwd)
+sinkhorn_fwd_thread(const float* __restrict__ pred, const int* __restrict__ gt_idx,
+                    float* __restrict__ loss, int B, int N, int D, int iters,
+                    float eps) {
+  if (EXACT) D = MAXD;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)B * N) return;
+  if (i >= (int64_t)B * N) return;  // no shuffles or barriers below
   const int64_t b = i / N;
   const float* P = pred + b * D * (int64_t)N + (i - b * N);
   float sc[MAXD], log_nu[MAXD], log_mu[MAXD], u[MAXD], v[MAXD];
@@ -151,12 +364,11 @@ sinkhorn_fwd_kernel(const float* __restrict__ pred,  // (B, D, N)
 }
 
 template <int MAXD, bool EXACT>
-__global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N)
-                                    const int* __restrict__ gt_idx,  // (B, N)
-                                    const float* __restrict__ g,     // (B, N)
-                                    float* __restrict__ dpred,       // (B, D, N)
-                                    int B, int N, int D, int iters,
-                                    float eps) {
+__global__ void sinkhorn_bwd_thread(const float* __restrict__ pred,
+                                    const int* __restrict__ gt_idx,
+                                    const float* __restrict__ g,
+                                    float* __restrict__ dpred, int B, int N,
+                                    int D, int iters, float eps) {
   if (EXACT) D = MAXD;
   extern __shared__ float hist[];  // (iters, 2, D, blockDim.x): u_t, v_t
   const int tid = threadIdx.x;
@@ -180,8 +392,6 @@ __global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N
     });
   }
 
-  // the loss sum_ij T_ij C_ij, T = exp(S + u + v), gives du_i = g sum_j
-  // T_ij C_ij and dv_j = g sum_i T_ij C_ij
   const float gi = g[i];
   float du[MAXD], dv[MAXD], dlog_nu[MAXD];
   bins<MAXD>(D, [&](int k) { du[k] = dv[k] = dlog_nu[k] = 0.f; });
@@ -198,7 +408,6 @@ __global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N
     dv[k] *= gi;
   });
 
-  // reverse sweep, t = iters - 1 .. 0; du, dv hold the cotangents of u_t, v_t
   for (int t = iters - 1; t >= 0; --t) {
     const float* h = hist + (int64_t)t * 2 * D * nt + tid;
     float vt[MAXD], row[MAXD], acc[MAXD], dvt[MAXD];
@@ -207,8 +416,6 @@ __global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N
       acc[k] = 0.f;
       dlog_nu[k] += du[k];
     });
-    // u_t = log_nu - LSE_j(S_ij + v_t_j): dv_t_j -= sum_i du_i P_ij, with
-    // P = softmax over j of S_ij + v_t_j
     bins<MAXD>(D, [&](int r) {
       float m = S(sc, r, 0) + vt[0];
       bins<MAXD>(D, [&](int c) {
@@ -222,9 +429,7 @@ __global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N
       bins<MAXD>(D, [&](int c) { acc[c] += du[r] * (row[c] / s); });
     });
     bins<MAXD>(D, [&](int c) { dvt[c] = dv[c] - acc[c]; });
-    if (t == 0) break;  // u_{-1} = 0 is a constant: nothing flows further
-    // v_t = log_mu - LSE_i(S_ij + u_{t-1}_i): du_{t-1}_i = -sum_j dv_t_j
-    // Q_ij, with Q = softmax over i of S_ij + u_{t-1}_i
+    if (t == 0) break;
     const float* hp = h - 2 * D * nt;
     float up[MAXD];
     bins<MAXD>(D, [&](int k) {
@@ -251,78 +456,95 @@ __global__ void sinkhorn_bwd_kernel(const float* __restrict__ pred,  // (B, D, N
   });
 }
 
-unsigned blocks_for(int B, int N, int threads) {
+unsigned blocks_for(int B, int N, int pixels_per_block) {
   const int64_t n = (int64_t)B * N;
-  return (unsigned)((n + threads - 1) / threads);
+  return (unsigned)((n + pixels_per_block - 1) / pixels_per_block);
 }
 
-template <int MAXD, bool EXACT>
-int launch_fwd(const float* pred, const int* gt, float* loss, int B, int N,
-               int D, int iters, float eps, cudaStream_t st) {
-  sinkhorn_fwd_kernel<MAXD, EXACT><<<blocks_for(B, N, kFwdThreads), kFwdThreads, 0, st>>>(
-      pred, gt, loss, B, N, D, iters, eps);
-  return (int)cudaGetLastError();
+// lanes: a row of pixel blocks for each batch element
+dim3 lane_grid(int B, int N, int pixels_per_block) {
+  return dim3((unsigned)((N + pixels_per_block - 1) / pixels_per_block), (unsigned)B);
 }
 
-template <int MAXD, bool EXACT>
-int launch_bwd(const float* pred, const int* gt, const float* g, float* dpred,
-               int B, int N, int D, int iters, float eps, int threads, int smem,
-               cudaStream_t st) {
+template <class K, class... A>
+int launch(K kernel, dim3 blocks, int threads, int smem, cudaStream_t st, A... args) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sinkhorn_bwd_kernel<MAXD, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sinkhorn_bwd_kernel<MAXD, EXACT><<<blocks_for(B, N, threads), threads, smem, st>>>(
-      pred, gt, g, dpred, B, N, D, iters, eps);
+  kernel<<<blocks, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each returns the cudaError_t of
-// its launch (0 on success; cudaErrorInvalidValue for a capacity that is
-// not instantiated or a D outside [1, capacity]).  The Python wrappers check
-// device, dtype, shapes and contiguity, pick the capacity
-// (kernels/sinkhorn_ot.capacity) and size K5's block and shared memory.
-// D = 4 and D = 8 (dtu_default's counts) run instances with D a constant.
-#define MVSTER_DISPATCH_MAXD(CALL)                                   \
-  if (D < 1 || D > maxd) return (int)cudaErrorInvalidValue;          \
-  switch (maxd) {                                                    \
-    case 4: return D == 4 ? CALL(4, true) : CALL(4, false);          \
-    case 8: return D == 8 ? CALL(8, true) : CALL(8, false);          \
-    case 16: return CALL(16, false);                                 \
-    case 32: return CALL(32, false);                                 \
-    case 64: return CALL(64, false);                                 \
-    default: return (int)cudaErrorInvalidValue;                      \
-  }
+// its launch (0 on success; cudaErrorInvalidValue for a design, capacity or
+// block it does not take).  The Python wrappers check device, dtype, shapes
+// and contiguity, and kernels/sinkhorn_ot.plan_launch picks the design
+// (0 lanes, 1 thread), the capacity (lanes: L in 1, 2, 4, 8, 16, 32;
+// thread: 4, 8, 64), the block and K5's shared memory.  D = 4 and D = 8
+// (dtu_default's counts) run instances with D a constant in both designs.
+#define MVSTER_DISPATCH(LANES, THREAD)                                      \
+  if (D < 1 || D > maxd || threads % 32 || threads < 32 || threads > kThreads) \
+    return (int)cudaErrorInvalidValue;                                      \
+  if (design == 0 && B <= 65535) {                                          \
+    switch (maxd) {                                                         \
+      case 1: return LANES(1, false);                                       \
+      case 2: return LANES(2, false);                                       \
+      case 4: return D == 4 ? LANES(4, true) : LANES(4, false);             \
+      case 8: return D == 8 ? LANES(8, true) : LANES(8, false);             \
+      case 16: return LANES(16, false);                                     \
+      case 32: return LANES(32, false);                                     \
+    }                                                                       \
+  } else if (design == 1) {                                                 \
+    switch (maxd) {                                                         \
+      case 4: return D == 4 ? THREAD(4, true) : THREAD(4, false);           \
+      case 8: return D == 8 ? THREAD(8, true) : THREAD(8, false);           \
+      case 64: return THREAD(64, false);                                    \
+    }                                                                       \
+  }                                                                         \
+  return (int)cudaErrorInvalidValue;
 
 extern "C" int mvster_sinkhorn_fwd(const void* pred, const void* gt_idx,
                                    void* loss, int B, int N, int D, int iters,
-                                   float eps, int maxd, void* stream) {
+                                   float eps, int design, int maxd, int threads,
+                                   void* stream) {
   auto p = static_cast<const float*>(pred);
   auto gt = static_cast<const int*>(gt_idx);
   auto out = static_cast<float*>(loss);
   auto st = static_cast<cudaStream_t>(stream);
-#define MVSTER_FWD(M, E) launch_fwd<M, E>(p, gt, out, B, N, D, iters, eps, st)
-  MVSTER_DISPATCH_MAXD(MVSTER_FWD)
-#undef MVSTER_FWD
+#define MVSTER_FWD_LANES(M, E)                                                    \
+  launch(sinkhorn_fwd_lanes<M, E>, lane_grid(B, N, threads / M), threads, 0, st, p, \
+         gt, out, B, N, D, iters, eps)
+#define MVSTER_FWD_THREAD(M, E)                                                   \
+  launch(sinkhorn_fwd_thread<M, E>, dim3(blocks_for(B, N, threads)), threads, 0, st, \
+         p, gt, out, B, N, D, iters, eps)
+  MVSTER_DISPATCH(MVSTER_FWD_LANES, MVSTER_FWD_THREAD)
+#undef MVSTER_FWD_LANES
+#undef MVSTER_FWD_THREAD
 }
 
 extern "C" int mvster_sinkhorn_bwd(const void* pred, const void* gt_idx,
                                    const void* g, void* dpred, int B, int N,
-                                   int D, int iters, float eps, int threads,
-                                   int smem_bytes, int maxd, void* stream) {
+                                   int D, int iters, float eps, int design,
+                                   int maxd, int threads, int smem_bytes,
+                                   void* stream) {
   auto p = static_cast<const float*>(pred);
   auto gt = static_cast<const int*>(gt_idx);
   auto cot = static_cast<const float*>(g);
   auto out = static_cast<float*>(dpred);
   auto st = static_cast<cudaStream_t>(stream);
-#define MVSTER_BWD(M, E) \
-  launch_bwd<M, E>(p, gt, cot, out, B, N, D, iters, eps, threads, smem_bytes, st)
-  MVSTER_DISPATCH_MAXD(MVSTER_BWD)
-#undef MVSTER_BWD
+#define MVSTER_BWD_LANES(M, E)                                                 \
+  launch(sinkhorn_bwd_lanes<M, E>, lane_grid(B, N, threads / M), threads,     \
+         smem_bytes, st, p, gt, cot, out, B, N, D, iters, eps)
+#define MVSTER_BWD_THREAD(M, E)                                                \
+  launch(sinkhorn_bwd_thread<M, E>, dim3(blocks_for(B, N, threads)), threads, \
+         smem_bytes, st, p, gt, cot, out, B, N, D, iters, eps)
+  MVSTER_DISPATCH(MVSTER_BWD_LANES, MVSTER_BWD_THREAD)
+#undef MVSTER_BWD_LANES
+#undef MVSTER_BWD_THREAD
 }
 
-#undef MVSTER_DISPATCH_MAXD
+#undef MVSTER_DISPATCH

@@ -150,15 +150,15 @@ def load_library() -> ctypes.CDLL:
         lib.mvster_sinkhorn_fwd.argtypes = [
             p, p, p,                    # pred, gt_idx, loss
             i, i, i, i, f,              # B, N, D, iters, eps
-            i,                          # capacity (MAXD)
+            i, i, i,                    # design (0 lanes, 1 thread), capacity, threads
             p,                          # cudaStream_t
         ]
         lib.mvster_sinkhorn_fwd.restype = i
         lib.mvster_sinkhorn_bwd.argtypes = [
             p, p, p, p,                 # pred, gt_idx, g, dpred
             i, i, i, i, f,              # B, N, D, iters, eps
+            i, i,                       # design, capacity
             i, i,                       # threads per block, shared-memory bytes
-            i,                          # capacity (MAXD)
             p,                          # cudaStream_t
         ]
         lib.mvster_sinkhorn_bwd.restype = i

@@ -14,7 +14,9 @@ A CPU tensor takes the plain versions, `sinkhorn_pixels_plain` and
 `sinkhorn_pixels_bwd_plain` (the same steps in PyTorch; the backward is
 written out, not autograd, so the tests can hold it against autograd); a
 CUDA tensor launches the kernel or raises.  `sinkhorn_fwd.launches` and
-`sinkhorn_bwd.launches` count kernel launches.
+`sinkhorn_bwd.launches` count kernel launches.  `plan_launch` decides, in
+Python, how the kernels map threads to bins: D lanes a pixel, or one
+thread a pixel above 32 bins and where that was measured faster.
 
 Layouts: pred (B, D, N) float32, the model's attention (B, D, H, W) as it
 lies with N = H * W; gt_idx (B, N) integer GT bins; per-pixel loss and its
@@ -27,7 +29,9 @@ with respect to attn_weight.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,10 +40,25 @@ from mvster_tpu_torch.kernels._build import check_tensor, load_library, raise_on
 _LOG_EPS = math.log(1e-12)
 _LOG_ONE = math.log(1.0 + 1e-12)
 MAX_D = 64  # the most bins K4/K5 take (dtu_default uses 8, 8, 4, 4)
-CAPACITIES = (4, 8, 16, 32, 64)  # the kernels' template instances (MAXD)
+MAX_LANES = 32  # the most bins that run with a thread a bin
+LANE_CAPACITIES = (1, 2, 4, 8, 16, 32)  # csrc/sinkhorn_ot.cu's instances, lanes
+THREAD_CAPACITIES = (4, 8, 64)  # ... and one thread a pixel
+DESIGNS = ("lanes", "thread")  # the C interface's design argument, 0 and 1
+KERNELS = ("fwd", "bwd")  # K4, K5
+THREADS = 256  # kThreads: K4's block with lanes, K5's largest
+THREAD_FWD = 128  # kThreadFwd: K4's block with one thread a pixel
+# Where one thread a pixel beat D lanes on the H100 (scripts/torch_sinkhorn_ab.py,
+# 10 iterations, batch 2 at 64x80, 128x160, 256x320 and 512x640; PERF.md):
+# {D: the B * N pixels from which it is taken}.  It won from 163,840 pixels
+# on and lost at 40,960, except K4 at D = 5 (won at 40,960, lost at 10,240);
+# FILL_PIXELS is half the card's resident threads (132 SMs x 2048 / 2).
+FILL_PIXELS = 132 * 1024
+THREAD_FROM = {"fwd": {3: FILL_PIXELS, 4: FILL_PIXELS, 5: 40_960, 6: FILL_PIXELS,
+                       7: FILL_PIXELS, 8: FILL_PIXELS},
+               "bwd": {3: FILL_PIXELS, 4: FILL_PIXELS, 5: FILL_PIXELS}}
 SMEM_BYTES_MAX = 232_448  # dynamic shared memory one block may have (227 KB)
 _SMEM_DEFAULT = 48 * 1024  # what a launch gets without raising its limit
-_BWD_THREADS = (128, 64, 32)  # K5's block sizes, largest first
+_BLOCKS = (256, 128, 64, 32)  # K5's block sizes, largest first
 
 
 def _scaled_cost(d, eps, device):
@@ -127,32 +146,55 @@ def sinkhorn_pixels_bwd_plain(pred: torch.Tensor, gt_idx: torch.Tensor,
     return dlog_nu / (pred + 1e-12)
 
 
+class LaunchPlan(NamedTuple):
+    """How K4 and K5 run D bins (csrc/sinkhorn_ot.cu)."""
+
+    design: str    # "lanes" (L threads a pixel, D <= 32) or "thread" (one)
+    lanes: int     # threads a pixel: L, the smallest power of two >= D; 1
+    capacity: int  # the template instance: L; 4, 8 or 64 for "thread"
+    threads: int   # the block
+    smem: int      # dynamic shared bytes: K5's (u, v) history and, for
+    #                "lanes", its transpose tiles; 0 for K4
+
+
 def capacity(d: int) -> int:
-    """The kernel instance (MAXD, csrc/sinkhorn_ot.cu) that runs D bins: the
-    smallest capacity that holds D; raises outside 1 <= D <= MAX_D."""
+    """The lanes a pixel for D bins: L, the smallest power of two >= D, up
+    to 32 bins, else 64 (one thread a pixel, arrays of 64); raises outside
+    1 <= D <= MAX_D."""
     if not 1 <= d <= MAX_D:
         raise ValueError(f"the CUDA Sinkhorn kernels take 1 <= D <= {MAX_D} bins, got D={d}")
-    return next(m for m in CAPACITIES if d <= m)
+    return 1 << (d - 1).bit_length() if d <= MAX_LANES else MAX_D
 
 
-def bwd_launch_shape(d: int, iters: int) -> tuple[int, int]:
-    """K5's (threads per block, dynamic shared-memory bytes) for D and
-    iters: the (u, v) history takes iters * 2 * D floats per thread; the
-    largest block of 128, 64 or 32 threads whose history fits in 48 KB,
-    else 32 threads with a larger limit; raises where 32 threads do not
-    fit in 227 KB."""
-    per_thread = iters * 2 * d * 4
-    for threads in _BWD_THREADS:
-        if per_thread * threads <= _SMEM_DEFAULT:
-            return threads, per_thread * threads
-    threads = _BWD_THREADS[-1]
+@functools.lru_cache(maxsize=None)
+def plan_launch(kernel: str, d: int, iters: int, pixels: int) -> LaunchPlan:
+    """The launch of K4 ("fwd") or K5 ("bwd") for D bins, `iters`
+    iterations and B * N pixels.  D lanes a pixel up to 32 bins, except
+    from the pixels of THREAD_FROM at its D: there, and above 32 bins, one
+    thread a pixel.  K4's block is fixed; K5 keeps 4 (2 iters + L + 1)
+    bytes a thread in shared memory with lanes (its history and a pixel's
+    L x (L + 1) tile over its L threads), 8 iters D with one thread a
+    pixel, and its block is the largest of 256, 128, 64 and 32 threads
+    within 48 KB, else 32 threads with a larger limit.  Raises where 32
+    threads do not fit in SMEM_BYTES_MAX."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    cap = capacity(d)
+    if d <= MAX_LANES and pixels < THREAD_FROM[kernel].get(d, pixels + 1):
+        design, lanes, per_thread = "lanes", cap, 4 * (2 * iters + cap + 1)
+    else:
+        design, lanes, per_thread = "thread", 1, 8 * iters * d
+        cap = next(m for m in THREAD_CAPACITIES if d <= m)
+    if kernel == "fwd":
+        return LaunchPlan(design, lanes, cap, THREADS if design == "lanes" else THREAD_FWD, 0)
+    threads = next((n for n in _BLOCKS if per_thread * n <= _SMEM_DEFAULT), _BLOCKS[-1])
     if per_thread * threads > SMEM_BYTES_MAX:
         raise ValueError(
             f"iters={iters} at D={d} needs {per_thread * threads} bytes of shared "
-            f"memory for K5's history at {threads} threads, more than the "
-            f"{SMEM_BYTES_MAX} a block may have"
+            f"memory for K5 at {threads} threads, more than the {SMEM_BYTES_MAX} a "
+            f"block may have"
         )
-    return threads, per_thread * threads
+    return LaunchPlan(design, lanes, cap, threads, per_thread * threads)
 
 
 def _check_inputs(pred, gt_idx, g=None):
@@ -175,12 +217,15 @@ def sinkhorn_fwd(pred: torch.Tensor, gt_idx: torch.Tensor, iters: int,
     if pred.device.type != "cuda":
         raise ValueError(f"no kernel for device {pred.device}")
     b, d, n = _check_inputs(pred, gt_idx)
+    plan = plan_launch("fwd", d, int(iters), b * n)
     lib = load_library()
     loss = torch.empty((b, n), dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mvster_sinkhorn_fwd(pred.data_ptr(), gt_idx.data_ptr(), loss.data_ptr(),
-                                     b, n, d, int(iters), float(eps), capacity(d), stream)
+                                     b, n, d, int(iters), float(eps),
+                                     DESIGNS.index(plan.design), plan.capacity, plan.threads,
+                                     stream)
     raise_on_error(lib, rc, "mvster_sinkhorn_fwd")
     sinkhorn_fwd.launches += 1
     return loss
@@ -194,14 +239,15 @@ def sinkhorn_bwd(pred: torch.Tensor, gt_idx: torch.Tensor, g: torch.Tensor,
     if pred.device.type != "cuda":
         raise ValueError(f"no kernel for device {pred.device}")
     b, d, n = _check_inputs(pred, gt_idx, g)
-    threads, smem = bwd_launch_shape(d, int(iters))
+    plan = plan_launch("bwd", d, int(iters), b * n)
     lib = load_library()
     dpred = torch.empty((b, d, n), dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mvster_sinkhorn_bwd(pred.data_ptr(), gt_idx.data_ptr(), g.data_ptr(),
                                      dpred.data_ptr(), b, n, d, int(iters), float(eps),
-                                     threads, smem, capacity(d), stream)
+                                     DESIGNS.index(plan.design), plan.capacity,
+                                     plan.threads, plan.smem, stream)
     raise_on_error(lib, rc, "mvster_sinkhorn_bwd")
     sinkhorn_bwd.launches += 1
     return dpred

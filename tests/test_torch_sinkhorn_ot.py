@@ -171,25 +171,87 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (sinkhorn_ot.sinkhorn_fwd.launches, sinkhorn_ot.sinkhorn_bwd.launches) == before
 
 
-def test_bwd_launch_shape_fits_the_history_in_shared_memory():
-    # iters * 2 * D floats of (u, v) history per thread
-    assert sinkhorn_ot.bwd_launch_shape(8, 10) == (64, 64 * 640)
-    assert sinkhorn_ot.bwd_launch_shape(4, 10) == (128, 128 * 320)
-    assert sinkhorn_ot.bwd_launch_shape(8, 0) == (128, 0)
-    threads, smem = sinkhorn_ot.bwd_launch_shape(8, 60)  # 3840 B per thread
-    assert threads == 32 and 48 * 1024 < smem <= sinkhorn_ot.SMEM_BYTES_MAX
+@pytest.mark.parametrize("d,want", [
+    (1, ("lanes", 1, 1)), (2, ("lanes", 2, 2)), (3, ("lanes", 4, 4)), (4, ("lanes", 4, 4)),
+    (5, ("lanes", 8, 8)), (8, ("lanes", 8, 8)), (16, ("lanes", 16, 16)),
+    (32, ("lanes", 32, 32)), (33, ("thread", 1, 64)), (64, ("thread", 1, 64)),
+])
+def test_plan_launch_gives_a_pixel_d_lanes_up_to_32_bins(d, want):
+    """L lanes a pixel, L the smallest power of two >= D, up to 32 bins;
+    one thread a pixel (capacity 64) above; K4 and K5 alike where the
+    pixels do not fill the card (64x80, batch 2)."""
+    for kernel in sinkhorn_ot.KERNELS:
+        plan = sinkhorn_ot.plan_launch(kernel, d, 10, 2 * 64 * 80)
+        assert (plan.design, plan.lanes, plan.capacity) == want
+        assert plan.capacity == sinkhorn_ot.capacity(d)
+        assert plan.design in sinkhorn_ot.DESIGNS and plan.threads % 32 == 0
+    fwd = sinkhorn_ot.plan_launch("fwd", d, 10, 2 * 64 * 80)
+    assert (fwd.threads, fwd.smem) == (sinkhorn_ot.THREADS if d <= 32 else 128, 0)
+
+
+@pytest.mark.parametrize("kernel,d,h,w,want", [
+    # dtu_default's stages at 512x640, batch 2: D = 8 at 64x80 and 128x160
+    # takes lanes, D = 4 at 256x320 and 512x640 one thread a pixel
+    ("fwd", 8, 64, 80, ("lanes", 8)), ("bwd", 8, 128, 160, ("lanes", 8)),
+    ("fwd", 4, 256, 320, ("thread", 4)), ("bwd", 4, 512, 640, ("thread", 4)),
+    # one thread a pixel where it was faster on a full card: K4 at 3 <= D <= 8
+    # (D = 5 from 128x160), K5 at 3 <= D <= 5; lanes elsewhere
+    ("fwd", 3, 256, 320, ("thread", 4)), ("fwd", 8, 256, 320, ("thread", 8)),
+    ("fwd", 5, 128, 160, ("thread", 8)), ("fwd", 5, 64, 80, ("lanes", 8)),
+    ("bwd", 5, 128, 160, ("lanes", 8)),
+    ("bwd", 5, 256, 320, ("thread", 8)), ("bwd", 6, 512, 640, ("lanes", 8)),
+    ("bwd", 8, 512, 640, ("lanes", 8)), ("fwd", 2, 512, 640, ("lanes", 2)),
+    ("fwd", 16, 512, 640, ("lanes", 16)), ("fwd", 4, 128, 160, ("lanes", 4)),
+])
+def test_plan_launch_takes_one_thread_a_pixel_where_it_was_faster(kernel, d, h, w, want):
+    plan = sinkhorn_ot.plan_launch(kernel, d, 10, 2 * h * w)
+    assert (plan.design, plan.capacity) == want
+    assert plan.capacity in (sinkhorn_ot.LANE_CAPACITIES if plan.design == "lanes"
+                             else sinkhorn_ot.THREAD_CAPACITIES)
+
+
+@pytest.mark.parametrize("d,iters,want", [
+    # lanes: 4 (2 iters + L + 1) bytes a thread, the largest block within 48 KB
+    (8, 10, (256, 256 * 116)), (4, 10, (256, 256 * 100)), (8, 0, (256, 256 * 36)),
+    (32, 10, (128, 128 * 212)), (32, 60, (64, 64 * 612)), (8, 60, (64, 64 * 516)),
+    (1, 60, (64, 64 * 488)),
+    # thread: 8 iters D bytes a thread
+    (33, 0, (256, 0)), (33, 2, (64, 64 * 528)),
+])
+def test_plan_launch_sizes_k5s_block_and_shared_memory(d, iters, want):
+    plan = sinkhorn_ot.plan_launch("bwd", d, iters, 2 * 64 * 80)
+    assert (plan.threads, plan.smem) == want
+    assert plan.smem <= 48 * 1024
+
+
+def test_plan_launch_sizes_k5s_history_with_one_thread_a_pixel():
+    """(iters, 2, D) floats a thread: 128 threads at D = 4 and 10
+    iterations (40 KB), 64 at D = 5."""
+    full = 2 * 512 * 640
+    assert sinkhorn_ot.plan_launch("bwd", 4, 10, full)[3:] == (128, 128 * 320)
+    assert sinkhorn_ot.plan_launch("bwd", 5, 10, full)[3:] == (64, 64 * 400)
+    assert sinkhorn_ot.plan_launch("fwd", 4, 10, full)[3:] == (sinkhorn_ot.THREAD_FWD, 0)
+
+
+@pytest.mark.parametrize("d,iters", [(8, 200), (64, 10), (33, 10)])
+def test_plan_launch_raises_the_limit_above_48_kb(d, iters):
+    """Where 32 threads need more than 48 KB, the launch raises the block's
+    limit (up to 227 KB)."""
+    plan = sinkhorn_ot.plan_launch("bwd", d, iters, 2 * 64 * 80)
+    assert plan.threads == 32 and 48 * 1024 < plan.smem <= sinkhorn_ot.SMEM_BYTES_MAX
+
+
+@pytest.mark.parametrize("d,iters", [(8, 904), (64, 15)])
+def test_plan_launch_rejects_what_does_not_fit_in_227_kb(d, iters):
     with pytest.raises(ValueError, match="shared memory"):
-        sinkhorn_ot.bwd_launch_shape(8, 114)
+        sinkhorn_ot.plan_launch("bwd", d, iters, 2 * 64 * 80)
+    assert sinkhorn_ot.plan_launch("bwd", d, iters - 1, 2 * 64 * 80).smem <= \
+        sinkhorn_ot.SMEM_BYTES_MAX
 
 
-@pytest.mark.parametrize("d,want", [(1, (4, 128, 128 * 80)), (3, (4, 128, 128 * 240)),
-                                    (16, (16, 32, 32 * 1280)), (64, (64, 32, 32 * 5120))])
-def test_capacity_and_bwd_launch_shape_at_other_d(d, want):
-    """The kernel instance (capacity) for D bins, and K5's block and shared
-    bytes at 10 iterations: above 48 KB at D = 16 and 64, so the launch
-    raises the block's limit."""
-    assert (sinkhorn_ot.capacity(d), *sinkhorn_ot.bwd_launch_shape(d, 10)) == want
-    assert sinkhorn_ot.capacity(d) in sinkhorn_ot.CAPACITIES
+def test_plan_launch_rejects_an_unknown_kernel():
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        sinkhorn_ot.plan_launch("both", 8, 10, 100)
 
 
 @pytest.mark.parametrize("d", [0, 65])
@@ -232,10 +294,12 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,iters,eps", [(8, 60, 1.0), (4, 3, 0.7)])
+@pytest.mark.parametrize("d,iters,eps", [(8, 60, 1.0), (4, 3, 0.7), (8, 60, 0.7),
+                                         (8, 0, 1.0), (8, 200, 1.0), (64, 10, 1.0)])
 def test_kernels_match_plain_at_other_iters_and_eps_on_card(cuda_device, d, iters, eps):
-    """iters 60 at D = 8 needs 120 KB of history at 32 threads: the launch
-    raises the block's shared-memory limit."""
+    """iters 0 (no history, dL/dpred = 0), and above 48 KB of K5's shared
+    memory at 32 threads (iters 200 at D = 8, D = 64): the launch raises
+    the block's limit."""
     pred, gt_idx, g = _card_inputs((32, 48, d), cuda_device)
     torch.testing.assert_close(sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, iters, eps),
                                sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, iters, eps),
@@ -245,11 +309,29 @@ def test_kernels_match_plain_at_other_iters_and_eps_on_card(cuda_device, d, iter
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [2, 3, 16, 64])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 31, 32, 33, 64])
 def test_kernels_take_other_d_on_card(cuda_device, d):
-    """Depth counts off dtu_default: the capacities 4, 16 and 64, with D
-    below its capacity at 2 and 3."""
+    """Depth counts off dtu_default: every lanes capacity, D below its
+    capacity (3, 5, 31), and one thread a pixel above 32 bins."""
     test_kernels_match_plain_on_card(cuda_device, (32, 48, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 4, 5, 32, 33])
+def test_kernels_take_a_ragged_shape_on_card(cuda_device, d):
+    """B * N = 2 * 31 * 37 is no multiple of a block's pixels: the tail
+    block's idle lanes still reach every shuffle."""
+    assert (2 * 31 * 37) % (sinkhorn_ot.THREADS // sinkhorn_ot.capacity(d))
+    test_kernels_match_plain_on_card(cuda_device, (31, 37, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 5, 6, 8])
+def test_kernels_take_one_thread_a_pixel_on_a_full_card(cuda_device, d):
+    """256x320 at batch 2 fills the card: one thread a pixel for K4 (and
+    for K5 at D = 3, 5), the instances below capacity at D = 3, 5, 6."""
+    assert sinkhorn_ot.plan_launch("fwd", d, 10, 2 * 256 * 320).design == "thread"
+    test_kernels_match_plain_on_card(cuda_device, (256, 320, d))
 
 
 @pytest.mark.cuda
