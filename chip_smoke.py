@@ -73,11 +73,39 @@ Phases, one line each, any failure exits non-zero:
      comparator, with 4 K1 launches; and a train step of that model with
      ot_backend pallas (4 K4, 4 K5 launches) against xla, per-stage OT
      losses at rtol 1e-5
+ 17. DTU scan: tools.test.main on a synthetic 7-view scan of a textured
+     plane at DTU's 1200x1600 (the CLI's default --max_h 864 --max_w 1152
+     read it at 832x1152, snapped to multiples of 64), 5 views a
+     forward, thres_view 4, conf 0.5, from phase 8's checkpoint, with
+     --dtu_gt_dir pointing at a synthetic SampleSet tree of the plane: 28
+     K1 launches, 7 finite depth and confidence maps, the mask PNGs, the
+     fused PLY and dtu_metrics.json with its keys (its numbers read NaN:
+     the checkpoint predicts no depth on the plane; phase 18 scores);
+     the seconds of the scan's forward, fusion and metric; then K1
+     against plain at that forward's four stage shapes (104x144 to
+     832x1152, 4 sources), both attention modes, atol/rtol 1e-4
+ 18. fusion, card vs CPU: geometric_filter on the card and on the CPU
+     over phase 17's scan, (a) the plane's analytic depth maps at
+     confidence 1 and (b) the predicted maps: masks equal but at pixels
+     within 1e-4 of a threshold (counted), depth_avg at rtol 1e-5
+     elsewhere; each device's cloud unprojected from its outputs, and
+     fuse_scene on the card equal to the card's cloud; (a) the fused
+     points on the plane (|z - z0| / z0 < 1e-3) and evaluate_dtu on the
+     card's cloud finite with an accuracy under 0.2 mm; |dOverall|
+     between the card's and the CPU's clouds; geometric_filter by CUDA
+     events and the metric's seconds
+ 19. Tanks: tools.test.main --dataset tanks --split intermediate over the 8
+     scans, 3 views each at 1920x1080, thres_view 1: 96 K1 launches and 8
+     fused PLYs; then K1 against plain at that forward's four stage shapes
+     (128x240 to 1024x1920, 2 sources), both attention modes, atol/rtol 1e-4
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
 and K3 for one source view per stage, as one launch covers; every kernel
-timed queued, with its back-to-back time beside), and
+timed queued, with its back-to-back time beside; K1's launches are phase
+5's, with those of phases 5, 17 and 19 under launches_by_path, and its
+max_abs_err the largest of phases 3, 17 and 19, each under
+max_abs_err_by_path), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -100,21 +128,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 from _torch_parity import (  # noqa: E402
+    FUSION_EDGE,
     GRAD_NOISE,
+    assert_masks_agree,
     assert_stage_close,
+    fusion_edge_pixels,
     plane_batch,
+    plane_gt_points,
     relative_l2,
     stage_inputs,
     t,
     to_numpy_tree,
     torch_batch,
     write_blendedmvs_tree,
+    write_dtu_gt_tree,
     write_dtu_tree,
+    write_plane_scan,
+    write_tanks_tree,
 )
 from helpers import synthetic_sample  # noqa: E402
 from mvster_tpu_torch.core.geometry import plane_sweep_coords  # noqa: E402
 from mvster_tpu_torch.core.sampling import bilinear_taps  # noqa: E402
 from mvster_tpu_torch.dist.train_step import make_train_step  # noqa: E402
+from mvster_tpu_torch.infer.ply import read_ply  # noqa: E402
 from mvster_tpu_torch.kernels import _build, sinkhorn_ot, warp_correlate, warp_vjp  # noqa: E402
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig  # noqa: E402
 from mvster_tpu_torch.tools.test import infer_views  # noqa: E402
@@ -170,6 +206,16 @@ OFF_D = [1, 2, 3, 5, 16, 31, 32, 33, 64]  # K4/K5: every capacity, D below it
 OFF_OT_SHAPES = [(31, 37), (256, 320), (64, 80)]
 OFF_CONFIG = dict(stage_splits=(16, 8, 4, 4), group_cor_dim=(16, 8, 4, 2))
 OFF_H, OFF_W, OFF_VIEWS = 128, 192, 3
+# phases 17-19: the serving path through tools.test.main.  DTU's published
+# 1200x1600 images at the CLI's default --max_h 864 --max_w 1152, which the
+# loader snaps down to multiples of 64: 832x1152; 7 views of a scan's 49; a
+# textured plane at 600 mm; the ground truth on a 0.35 mm grid where at
+# least 5 of the 7 cameras see the plane
+DTU_H, DTU_W, DTU_VIEWS = 1200, 1600, 7
+SERVE_H, SERVE_W = 832, 1152
+PLANE_Z, DTU_BASELINE, GT_SPACING = 600.0, 40.0, 0.35
+SERVE_FLAGS = ["--group_cor", "--inverse_depth", "--attn_temp", "2"]
+TANKS_H, TANKS_W, TANKS_VIEWS = 1080, 1920, 3  # 3 views of the hundreds a scan has
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores; per clock and SM, its float32
 # pipe starts 128 FFMA, FADD or FMUL and its special-function units (MUFU:
@@ -1136,6 +1182,263 @@ def phase16_off_default(dev, card, rates, costs):
         + " vs " + ", ".join(f"{x:.6f}" for x in ot["xla"]) + f" (rtol 1e-5) | {card}")
 
 
+def _serve(argv, card, what):
+    """tools.test.main over argv with every kernel count at 0 just before;
+    returns (main's wall times, K1 launches, seconds in all)."""
+    from mvster_tpu_torch.tools import test as test_tool
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    times = test_tool.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    k1 = warp_correlate.fused_cost_volume.launches
+    others = [fn.launches for fn in (warp_vjp.warp_gather, warp_vjp.scatter_grad,
+                                     sinkhorn_ot.sinkhorn_fwd, sinkhorn_ot.sinkhorn_bwd)]
+    if any(others):
+        raise AssertionError(f"{what}: training kernels launched while serving: {others}")
+    return times, k1, total_s
+
+
+def k1_on_cascade(dev, h, w, nsrc, seed):
+    """K1 against its plain version at the four stage shapes that an h x w
+    forward with nsrc source views gives it (dtu_default's C, D and G a
+    stage, as STAGES), both attention modes, at atol/rtol KERNEL_TOL;
+    returns the largest |kernel - plain|.  Called after the path's counts
+    were read, so these launches count on no path."""
+    err = 0.0
+    for si, (_, _, c, d, g) in enumerate(STAGES):
+        inp = stage_inputs(seed + si, h >> (3 - si), w >> (3 - si), c, d, nsrc=nsrc)
+        args = [t(inp[k], dev) for k in ("ref", "src", "ref_proj", "src_projs", "hypo")]
+        for fuse in (True, False):
+            got = warp_correlate.fused_cost_volume(*args, g, 2.0, fuse)
+            want = warp_correlate.fused_cost_volume_plain(*args, g, 2.0, fuse)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{h}x{w} stage{si + 1}: non-finite K1 output")
+            torch.testing.assert_close(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            err = max(err, (got - want).abs().max().item())
+        del args, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase17_dtu_scan(dev, tmp, ckpt, card):
+    """The DTU serving path end to end through tools.test.main: a synthetic
+    7-view scan at DTU's 1200x1600, read at 832x1152, filtered and
+    fused on the card, scored by the DTU metric against a synthetic
+    SampleSet tree of the plane; then K1 against its plain version at the
+    four stage shapes of that forward (104x144 to 832x1152, 4 sources).
+
+    The metric is expected to read NaN here: phase 8's checkpoint, one
+    epoch on random-texture scenes, predicts no depth on the plane, and of
+    the ~100 points the filter keeps none lies within the metric's 20 mm
+    outlier cut.  So this phase checks that main writes dtu_metrics.json
+    with its keys, and phase 18 carries the scored check: evaluate_dtu,
+    the function main calls, on the card's cloud of the plane's analytic
+    depth maps must read finite numbers and an accuracy under 0.2 mm."""
+    from mvster_tpu_torch.data.pfm import read_pfm
+
+    root, gt_dir = os.path.join(tmp, "dtu_test"), os.path.join(tmp, "SampleSet", "MVS Data")
+    outdir = os.path.join(tmp, "dtu_out")
+    t0 = time.perf_counter()
+    scan, k, extrs = write_plane_scan(root, "scan1", n_views=DTU_VIEWS, h=DTU_H, w=DTU_W,
+                                      z=PLANE_Z, baseline=DTU_BASELINE)
+    # the plane where the filter can keep points: in the reference view and
+    # at least thres_view = 4 sources
+    stl = plane_gt_points(k, extrs, DTU_H, DTU_W, PLANE_Z, GT_SPACING, min_views=5)
+    write_dtu_gt_tree(gt_dir, 1, stl)
+    tree_s = time.perf_counter() - t0
+    argv = ["--testpath", root, "--testlist", scan, "--loadckpt", ckpt, "--outdir", outdir,
+            *SERVE_FLAGS, "--num_view", "5", "--thres_view", "4", "--conf", "0.5",
+            "--dtu_gt_dir", gt_dir]
+    times, k1, total_s = _serve(argv, card, "phase 17")
+    if k1 != 4 * DTU_VIEWS or times["views"] != DTU_VIEWS:
+        raise AssertionError(f"{times['views']} views, {k1} K1 launches, expected "
+                             f"{DTU_VIEWS} and {4 * DTU_VIEWS}")
+    for v in range(DTU_VIEWS):
+        for kind in ("depth_est", "confidence"):
+            m = read_pfm(os.path.join(outdir, scan, kind, f"{v:08d}.pfm"))[0]
+            if m.shape != (SERVE_H, SERVE_W) or not np.isfinite(m).all():
+                raise AssertionError(f"{kind} {v}: shape {m.shape}, finite {np.isfinite(m).all()}")
+        for kind in ("photo", "geo", "final"):
+            if not os.path.exists(os.path.join(outdir, scan, "mask", f"{v:08d}_{kind}.png")):
+                raise AssertionError(f"no {kind} mask for view {v}")
+    fused, _ = read_ply(os.path.join(outdir, "mvsnet001_l3.ply"))
+    if not np.isfinite(fused).all():
+        raise AssertionError("non-finite fused points")
+    with open(os.path.join(outdir, "dtu_metrics.json")) as f:
+        metrics = json.load(f)
+    if not {"accuracy", "completeness", "overall"} <= metrics.keys():
+        raise AssertionError(f"dtu_metrics.json keys {sorted(metrics)}")
+    err = k1_on_cascade(dev, SERVE_H, SERVE_W, nsrc=4, seed=170)
+    log(f"[17 dtu scan] tools.test.main on a {DTU_VIEWS}-view {DTU_H}x{DTU_W} scan at "
+        f"{SERVE_H}x{SERVE_W}, 5 views a forward, thres_view 4, conf 0.5: {k1} K1 launches, "
+        f"{len(fused)} fused points, accuracy {metrics['accuracy']:.4f} completeness "
+        f"{metrics['completeness']:.4f} overall {metrics['overall']:.4f} mm; seconds a scan: "
+        f"forward {times['forward']:.3f} (writing the views {times['depth']:.3f} in all), "
+        f"fusion {times['fusion'][scan]:.3f}, metric {times['metric']:.3f}; {total_s:.1f} s "
+        f"in main (trees written in {tree_s:.1f} s; GT {len(stl)} points at {GT_SPACING} mm); "
+        f"K1 vs plain at this forward's stages ({SERVE_H // 8}x{SERVE_W // 8} to "
+        f"{SERVE_H}x{SERVE_W}, 4 sources), both attention modes: max|d| {err:.3e} "
+        f"(atol=rtol={KERNEL_TOL}) | {card}")
+    return k1, err, dict(root=root, outdir=outdir, gt_dir=gt_dir, scan=scan, times=times)
+
+
+def _scan_inputs(serve, case):
+    """phase 17's scan as fuse_scene takes it: its pairs, cams as tools.test
+    wrote them, and (case) the plane's analytic depth at confidence 1 or the
+    predicted depth and confidence maps."""
+    from mvster_tpu_torch.data.common import read_cam_file, read_pair_file
+    from mvster_tpu_torch.data.pfm import read_pfm
+
+    scan_dir = os.path.join(serve["outdir"], serve["scan"])
+    pairs = read_pair_file(os.path.join(serve["root"], serve["scan"], "pair.txt"))
+    intr, extr, depth, conf = {}, {}, {}, {}
+    for v in range(DTU_VIEWS):
+        cam = read_cam_file(os.path.join(scan_dir, f"cams/{v:08d}_cam.txt"))
+        intr[v], extr[v] = cam.intrinsics, cam.extrinsics
+        if case == "plane":
+            depth[v] = np.full((SERVE_H, SERVE_W), PLANE_Z, np.float32)
+            conf[v] = np.ones((SERVE_H, SERVE_W), np.float32)
+        else:
+            depth[v] = read_pfm(os.path.join(scan_dir, f"depth_est/{v:08d}.pfm"))[0]
+            conf[v] = read_pfm(os.path.join(scan_dir, f"confidence/{v:08d}.pfm"))[0]
+    return pairs, depth, conf, intr, extr
+
+
+def phase18_fusion(dev, tmp, serve, card):
+    """Fusion on the card against the CPU on phase 17's scan: (a) the plane's
+    analytic depth maps, (b) the predicted ones.  geometric_filter runs once
+    a reference view on each device; each device's cloud is the
+    unprojection of its final mask and depth_avg, which is what fuse_scene
+    does with them, and fuse_scene on the card must give the card's cloud
+    bit for bit.  The card's cloud is scored by evaluate_dtu, the function
+    tools.test.main runs for --dtu_gt_dir."""
+    from mvster_tpu_torch.eval.dtu_metric import evaluate_dtu
+    from mvster_tpu_torch.infer.fusion import fuse_scene, geometric_filter, unproject_to_world
+    from mvster_tpu_torch.infer.ply import write_ply
+
+    def score(xyz, name):
+        ply_dir = os.path.join(tmp, f"fused_{name}")
+        os.makedirs(ply_dir, exist_ok=True)
+        write_ply(os.path.join(ply_dir, "mvsnet001_l3.ply"), xyz)
+        t0 = time.perf_counter()
+        summary = evaluate_dtu(ply_dir, serve["gt_dir"], [1])
+        return summary, time.perf_counter() - t0
+
+    results = {}
+    for case in ("plane", "predicted"):
+        pairs, depth, conf, intr, extr = _scan_inputs(serve, case)
+        edges = differ = 0
+        filter_ms = []
+        clouds = {"card": [], "cpu": []}
+        for ref, srcs in pairs:
+            stack = [np.stack([a[v] for v in srcs]) for a in (depth, intr, extr)]
+            edge = fusion_edge_pixels(depth[ref], intr[ref], extr[ref], *stack)
+            outs = {}
+            for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                args = [t(x, d) for x in (depth[ref], conf[ref], intr[ref], extr[ref], *stack)]
+                outs[name] = [x.cpu().numpy() for x in geometric_filter(*args, 0.5, 4)]
+                clouds[name].append(unproject_to_world(outs[name][1], outs[name][0],
+                                                       intr[ref], extr[ref])[0])
+                if name == "card":
+                    filter_ms.append(cuda_ms(lambda: geometric_filter(*args, 0.5, 4), iters=5))
+            got, want = outs["card"], outs["cpu"]
+            for i, kind in ((0, "final"), (2, "geo"), (3, "photo")):
+                differ += assert_masks_agree(got[i], want[i], edge, f"{case} view {ref} {kind}")
+            same = (got[2] == want[2]) & ~edge
+            torch.testing.assert_close(torch.from_numpy(got[1][same]),
+                                       torch.from_numpy(want[1][same]), rtol=1e-5, atol=0,
+                                       equal_nan=True)
+            edges += int(edge.sum())
+        clouds = {name: np.concatenate(c) for name, c in clouds.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = fuse_scene(pairs, depth, conf, intr, extr, conf_thresh=0.5, thres_view=4,
+                           device=dev)[0]
+        fuse_s = time.perf_counter() - t0
+        if not np.array_equal(fused, clouds["card"]):
+            raise AssertionError(f"{case}: fuse_scene on the card differs from the card's "
+                                 f"filter outputs ({len(fused)} vs {len(clouds['card'])} points)")
+        same_cloud = np.array_equal(clouds["card"], clouds["cpu"])
+        stats, metric_s = {}, {}
+        # the metric is a function of the cloud (seeded thinning): an equal
+        # cloud scores the same, so only a different one is scored again
+        for name in ("card",) if same_cloud else ("card", "cpu"):
+            stats[name], metric_s[name] = score(clouds[name], f"{case}_{name}")
+        stats.setdefault("cpu", stats["card"])
+        overall = {k: v["overall"] for k, v in stats.items()}
+        # one cloud, one score: 0 even where the score is NaN (no point of a
+        # cloud within the 20 mm outlier cut)
+        d_overall = 0.0 if same_cloud else abs(overall["card"] - overall["cpu"])
+        line = (f"[18 fusion {case}] card vs CPU over {len(pairs)} reference views "
+                f"({len(pairs[0][1])} sources, {SERVE_H}x{SERVE_W}): masks agree but at "
+                f"{differ} of {edges} edge pixels (within {FUSION_EDGE} of a threshold), "
+                f"depth_avg within rtol 1e-5 elsewhere; {len(clouds['card'])} points on the "
+                f"card, {len(clouds['cpu'])} on the CPU"
+                f"{' (bitwise equal)' if same_cloud else ''}, fuse_scene on the card the same "
+                f"in {fuse_s:.3f} s; overall {overall['card']:.6f} vs "
+                f"{overall['cpu']:.6f} mm, |dOverall| {d_overall:.3e}; geometric_filter "
+                f"{np.mean(filter_ms):.3f} ms a reference view on the card (CUDA events, "
+                f"{min(filter_ms):.3f}-{max(filter_ms):.3f}); evaluate_dtu "
+                f"{metric_s['card']:.2f} s on the host")
+        if case == "plane":
+            z = clouds["card"][:, 2]
+            rel = np.abs(z - PLANE_Z).max() / PLANE_Z
+            acc, comp = stats["card"]["accuracy"], stats["card"]["completeness"]
+            if len(z) < DTU_VIEWS * SERVE_H * SERVE_W // 4 or rel >= 1e-3:
+                raise AssertionError(f"plane: {len(z)} points, max |z - z0| / z0 {rel:.3e}")
+            if not (np.isfinite([acc, comp, overall["card"]]).all() and acc < 0.2):
+                raise AssertionError(f"plane: evaluate_dtu {stats['card']}")
+            if not d_overall <= 1e-3:
+                raise AssertionError(f"plane: |dOverall| {d_overall}")
+            line += (f"; max |z - z0| / z0 {rel:.3e}, accuracy {acc:.4f} completeness "
+                     f"{comp:.4f} mm")
+        log(line + f" | {card}")
+        results[case] = dict(edges=edges, differ=differ, d_overall=d_overall,
+                             filter_ms=float(np.mean(filter_ms)), metric_s=metric_s["card"])
+    return results
+
+
+def phase19_tanks(dev, tmp, ckpt, card):
+    """Tanks and Temples through tools.test.main: the 8 intermediate scans,
+    3 views each at the published 1920x1080; then K1 against its plain
+    version at the four stage shapes of that forward (128x240 to
+    1024x1920, 2 sources)."""
+    root, outdir = os.path.join(tmp, "tanks"), os.path.join(tmp, "tanks_out")
+    t0 = time.perf_counter()
+    scans = write_tanks_tree(root, "intermediate", n_views=TANKS_VIEWS, h=TANKS_H, w=TANKS_W)
+    tree_s = time.perf_counter() - t0
+    argv = ["--dataset", "tanks", "--split", "intermediate", "--testpath", root,
+            "--testlist", "all", "--loadckpt", ckpt, "--outdir", outdir, *SERVE_FLAGS,
+            "--num_view", str(TANKS_VIEWS), "--thres_view", "1"]
+    times, k1, total_s = _serve(argv, card, "phase 19")
+    views = TANKS_VIEWS * len(scans)
+    if k1 != 4 * views or times["views"] != views or list(times["fusion"]) != scans:
+        raise AssertionError(f"{times['views']} views, {k1} K1 launches, fused "
+                             f"{list(times['fusion'])}")
+    points = []
+    for scan in scans:
+        xyz, _ = read_ply(os.path.join(outdir, f"{scan}.ply"))
+        if not np.isfinite(xyz).all():
+            raise AssertionError(f"{scan}: non-finite points")
+        points.append(len(xyz))
+    h = TANKS_H - 56  # the loader's 1080 -> 1024 crop
+    err = k1_on_cascade(dev, h, TANKS_W, nsrc=TANKS_VIEWS - 1, seed=190)
+    fusion_s = list(times["fusion"].values())
+    log(f"[19 tanks] tools.test.main --dataset tanks --split intermediate: {len(scans)} "
+        f"scans x {TANKS_VIEWS} views at {TANKS_W}x{TANKS_H} (read at {TANKS_W}x"
+        f"{h}), {k1} K1 launches, "
+        f"{len(scans)} fused PLYs of {min(points)}-{max(points)} points; forward "
+        f"{times['forward']:.3f} s for {views} views, fusion {sum(fusion_s):.3f} s "
+        f"({min(fusion_s):.3f}-{max(fusion_s):.3f} a scan); {total_s:.1f} s in main (tree "
+        f"written in {tree_s:.1f} s); K1 vs plain at this forward's stages ({h // 8}x"
+        f"{TANKS_W // 8} to {h}x{TANKS_W}, {TANKS_VIEWS - 1} sources), both attention modes: "
+        f"max|d| {err:.3e} (atol=rtol={KERNEL_TOL}) | {card}")
+    return k1, err
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1252,18 +1555,26 @@ def main():
         ft_launches, blend_root = phase13_finetune(dev, tmp, ckpt, card)
         dtu = phase14_backends(dev, root)
         ot_sums, by4, by5 = phase15_times(dev, ot_stages, dtu, blend_root, card, rates, costs)
-    log(f"[15 times] K4/K5 bounds at {FMA_PER_CLOCK_PER_SM} float32-pipe and "
-        f"{MUFU_PER_CLOCK_PER_SM} MUFU instructions a clock x {sms} SMs x {mhz:.0f} MHz "
-        f"(nvidia-smi's maximum SM clock) = {rates[0]:.4e} and {rates[1]:.4e} per s; "
-        f"(float32-pipe, MUFU) instructions from SASS: " + ", ".join(
-            f"{k} {v}" for k, v in costs.items()))
-    phase16_off_default(dev, card, rates, costs)
+        log(f"[15 times] K4/K5 bounds at {FMA_PER_CLOCK_PER_SM} float32-pipe and "
+            f"{MUFU_PER_CLOCK_PER_SM} MUFU instructions a clock x {sms} SMs x {mhz:.0f} MHz "
+            f"(nvidia-smi's maximum SM clock) = {rates[0]:.4e} and {rates[1]:.4e} per s; "
+            f"(float32-pipe, MUFU) instructions from SASS: " + ", ".join(
+                f"{k} {v}" for k, v in costs.items()))
+        phase16_off_default(dev, card, rates, costs)
+        # 17-19: the serving path from phase 8's checkpoint
+        dtu_launches, dtu_err, serve = phase17_dtu_scan(dev, tmp, ckpt, card)
+        phase18_fusion(dev, tmp, serve, card)
+        tanks_launches, tanks_err = phase19_tanks(dev, tmp, ckpt, card)
 
     print(card)
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=main_path_launches, max_abs_err=max(errs), ms=k1_sums["qk"],
+        dict(KERNEL, launches=main_path_launches, max_abs_err=max(*errs, dtu_err, tanks_err),
+             ms=k1_sums["qk"],
              plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
-             library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"]),
+             library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"],
+             launches_by_path={"serve": main_path_launches, "dtu_scan": dtu_launches,
+                               "tanks": tanks_launches},
+             max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err}),
         dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"]),

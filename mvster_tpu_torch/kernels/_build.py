@@ -12,6 +12,10 @@ The library lands in build/mvster_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  ptxas's register and spill report is
 kept beside it as nvcc.log.  Nothing here runs at import time.
+
+`hashed_path` and `publish` (the hash-keyed directory and the build into a
+temporary file renamed into place) serve eval/dtu_metric.py's host C++
+library too.
 """
 
 from __future__ import annotations
@@ -48,13 +52,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> Path:
+def hashed_path(root: Path, sources: list[Path], flags: list[str], name: str,
+                salt: str = "") -> Path:
+    """root/<hash>/name, the hash taken over the sources' names and bytes,
+    the compiler flags and `salt`: edited sources or flags build anew."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / digest.hexdigest()[:16] / "libmvster_tpu_torch.so"
+    digest.update(" ".join(flags).encode())
+    digest.update(salt.encode())
+    return root / digest.hexdigest()[:16] / name
+
+
+def publish(lib_path: Path, make) -> None:
+    """Run make(tmp) to write a library into a temporary file beside
+    lib_path, then rename it into place: concurrent builds never load a
+    half-written library.  The temporary file is removed if make raises."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+    os.close(fd)
+    try:
+        make(tmp)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    os.replace(tmp, lib_path)
+
+
+def library_path() -> Path:
+    return hashed_path(BUILD_ROOT, _sources(), NVCC_FLAGS, "libmvster_tpu_torch.so")
 
 
 def build() -> Path:
@@ -63,42 +90,39 @@ def build() -> Path:
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
     cu = [s for s in _sources() if s.suffix == ".cu"]
-    # build into temporary names and rename, so concurrent builds never load
-    # a half-written library; one nvcc per source, all started together,
-    # then one link
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
-    os.close(fd)
-    objs = [f"{tmp}.{src.stem}.o" for src in cu]
+
+    def make(tmp):
+        # one nvcc per source, all started together, then one link
+        objs = [f"{tmp}.{src.stem}.o" for src in cu]
+        nvcc = _nvcc()
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [
+            subprocess.Popen([nvcc, *compile_flags, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(cu, objs)
+        ]
+        logs, failed = [], []
+        for src, proc in zip(cu, procs):
+            out, err = proc.communicate()
+            logs.append(f"== {src.name}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link (exit {link.returncode}):\n{link.stderr}")
+        (lib_path.parent / "nvcc.log").write_text("\n".join(logs))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
     t0 = time.perf_counter()
-    nvcc = _nvcc()
-    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    procs = [
-        subprocess.Popen([nvcc, *compile_flags, "-c", "-o", obj, str(src)],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for src, obj in zip(cu, objs)
-    ]
-    logs, failed = [], []
-    for src, proc in zip(cu, procs):
-        out, err = proc.communicate()
-        logs.append(f"== {src.name}\n{out}{err}")
-        if proc.returncode != 0:
-            failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
-    if not failed:
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
-                              capture_output=True, text=True)
-        logs.append(f"== link\n{link.stdout}{link.stderr}")
-        if link.returncode != 0:
-            failed.append(f"link (exit {link.returncode}):\n{link.stderr}")
-    (lib_path.parent / "nvcc.log").write_text("\n".join(logs))
-    for obj in objs:
-        if os.path.exists(obj):
-            os.unlink(obj)
-    if failed:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    os.replace(tmp, lib_path)
+    publish(lib_path, make)
     build_seconds = time.perf_counter() - t0
     return lib_path
 

@@ -1,10 +1,11 @@
 """Flags of the port's inference and training tools (counterpart of mvster_tpu.tools.cli).
 
 The model flags are the JAX package's (add_model_args), mapped onto the
-port's MVS4NetConfig; the test flags are the subset that the port's
-inference tool runs (general_eval, depth maps only); the train flags are
-the JAX training tool's for one process on one device.  Both tools take
---device, default cuda, and raise without a card unless given --device cpu.
+port's MVS4NetConfig; the test flags are the JAX inference tool's but for
+--vis_ETA and --vis_mono (the attention dumps are not ported); the train
+flags are the JAX training tool's for one process on one device.  Both
+tools take --device, default cuda, and raise without a card unless given
+--device cpu.
 """
 
 from __future__ import annotations
@@ -84,15 +85,17 @@ def model_config_from_args(args) -> MVS4NetConfig:
 
 def build_test_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="mvster_tpu_torch inference tool: writes depth and "
-                    "confidence maps (PFM), cams and images per reference "
-                    "view.  It writes depth maps only: point-cloud fusion "
-                    "and the DTU metric are not ported yet.",
+        description="mvster_tpu_torch inference and fusion tool: depth and "
+                    "confidence maps per reference view, the cross-view "
+                    "filter and the fused point cloud per scan, and the DTU "
+                    "metric with --dtu_gt_dir",
     )
-    p.add_argument("--dataset", default="general_eval", choices=["general_eval"])
+    p.add_argument("--dataset", default="general_eval",
+                   choices=["general_eval", "general_eval4", "tanks", "eth3d"])
     p.add_argument("--testpath", required=True)
     p.add_argument("--testlist", required=True,
-                   help="a scan name, or a file listing one scan per line")
+                   help="a scan name, or a file listing one scan per line "
+                        "(tanks and eth3d run their whole split)")
     p.add_argument("--loadckpt", required=True,
                    help="reference MVSTER .ckpt or a saved state dict")
     p.add_argument("--outdir", default="./outputs")
@@ -102,7 +105,20 @@ def build_test_parser() -> argparse.ArgumentParser:
                    help="reference views per forward")
     p.add_argument("--max_h", type=int, default=864)
     p.add_argument("--max_w", type=int, default=1152)
+    p.add_argument("--fix_res", action="store_true",
+                   help="general_eval: every scan at the first scan's size")
     p.add_argument("--use_raw_train", action="store_true")
+    p.add_argument("--filter_method", default="normal", choices=["normal", "gipuma"])
+    p.add_argument("--conf", type=float, default=0.5)
+    p.add_argument("--thres_view", type=int, default=4)
+    p.add_argument("--split", default="intermediate",
+                   help="tanks: intermediate or advanced")
+    p.add_argument("--save_jpg", action="store_true",
+                   help="also write each stage's depth as a colour-mapped jpg")
+    p.add_argument("--save_freq", type=int, default=20,
+                   help="write a camera-frame ply_local cloud every N views")
+    p.add_argument("--dtu_gt_dir", default=None,
+                   help="DTU SampleSet 'MVS Data' dir; runs the DTU metric when set")
     add_device_arg(p)
     add_model_args(p)
     return p

@@ -1,25 +1,34 @@
-"""Inference tool: depth and confidence maps per reference view (counterpart of mvster_tpu.tools.test).
+"""Inference and fusion tool: depth maps -> filtered point clouds -> metric (counterpart of mvster_tpu.tools.test).
 
-`infer_views` is the forward/drain loop of the JAX inference tool's save_depth:
-reference views in chunks of eval_batch (the trailing chunk padded with
-its last view, so every forward has one shape), one eval forward per
-chunk, results copied to the host.  It imports nothing beyond torch and
-numpy.  Unlike the JAX inference tool it does not dispatch the next chunk before
-draining the current one.
+Per scan, as the JAX inference tool does it:
+  1. the eval forward over every reference view (`infer_views`), writing
+     depth_est/*.pfm, confidence/*.pfm, cams/*_cam.txt and images/*.jpg, a
+     camera-frame ply_local/*.ply every --save_freq views and, with
+     --save_jpg, each stage's depth as a colour-mapped jpg;
+  2. the cross-view geometric filter and fusion on the device
+     (infer/fusion.py), writing mask/*_{photo,geo,final}.png and the fused
+     mvsnet{scan:03d}_l3.ply (DTU) or <scan>.ply (Tanks, ETH3D);
+  3. with --dtu_gt_dir, the DTU metric (eval/dtu_metric.py) over the fused
+     DTU scans, printed and written to dtu_metrics.json.
+Datasets: general_eval (DTU and custom scans), tanks (--split) and eth3d.
+Everything runs on the card unless --device cpu is given; without a card
+it raises.
 
-`main` is the `--dataset general_eval` command line, on the card unless
-`--device cpu` is given (without a card it raises): it writes
-depth_est/*.pfm, confidence/*.pfm, cams/*_cam.txt and images/*.jpg per scan
-in the JAX inference tool's layout (without its ply_local dumps).  Point-cloud
-fusion and the DTU metric are not ported yet, so it writes depth maps only.
+`infer_views` is the forward/drain loop of the JAX inference tool's
+save_depth: reference views in chunks of eval_batch (the trailing chunk
+padded with its last view, so every forward has one shape), one eval
+forward per chunk, results copied to the host.  Unlike the JAX inference
+tool it does not dispatch the next chunk before draining the current one.
 
   python -m mvster_tpu_torch.tools.test --testpath $DTU_TEST \\
       --testlist lists/dtu/test.txt --loadckpt model.ckpt \\
-      --interval_scale 1.06 --group_cor --attn_temp 2 --inverse_depth
+      --interval_scale 1.06 --thres_view 4 --conf 0.5 \\
+      --group_cor --attn_temp 2 --inverse_depth [--dtu_gt_dir "$MVS_DATA"]
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Iterable, Iterator
@@ -84,12 +93,58 @@ def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1
         yield from _forward_chunk(model, chunk, eval_batch, device)
 
 
-def _write_view_outputs(args, sample, out):
-    """One reference view's PFMs, cam file and image, in the JAX inference tool's layout."""
+def colormap_jet(depth: np.ndarray) -> np.ndarray:
+    import cv2
+
+    valid = depth > 0
+    mi = depth[valid].min() if valid.any() else 0.0
+    ma = depth.max()
+    norm = (depth - mi) / (ma - mi + 1e-8)
+    return cv2.applyColorMap((255 * norm).astype(np.uint8), cv2.COLORMAP_JET)
+
+
+def save_depth(args, model: MVS4Net, testlist) -> tuple[float, int]:
+    """The forward over every scan's reference views, writing each view's
+    outputs; returns (forward seconds, views)."""
+    dataset_cls = find_dataset_def(args.dataset)
+    total_time, total_views = 0.0, 0
+    # fix_res pins the whole multi-scan run to the first scan's resolution
+    # (the reference's module-global s_h/s_w, general_eval4.py:7,135-153);
+    # per-scan datasets thread the pinned size through this variable
+    carried_fixed_wh = None
+    for scan in testlist:
+        if args.dataset.startswith("general"):
+            dataset = dataset_cls(
+                args.testpath, [scan], "test", args.num_view, args.interval_scale,
+                max_h=args.max_h, max_w=args.max_w, fix_res=args.fix_res,
+            )
+            if args.fix_res and carried_fixed_wh is not None:
+                dataset.fixed_wh = carried_fixed_wh
+        elif args.dataset == "tanks":
+            dataset = dataset_cls(args.testpath, n_views=args.num_view, split=args.split)
+        elif args.dataset == "eth3d":
+            dataset = dataset_cls(args.testpath, n_views=args.num_view)
+        else:
+            raise ValueError(f"unsupported test dataset {args.dataset}")
+
+        samples = (dataset[i] for i in range(len(dataset)))
+        for idx, (sample, out) in enumerate(infer_views(model, samples, args.eval_batch)):
+            total_time += out["seconds"] / out["chunk_views"]
+            total_views += 1
+            _write_view_outputs(args, sample, out, idx, len(dataset))
+        if args.dataset.startswith("general") and args.fix_res:
+            carried_fixed_wh = dataset.fixed_wh
+    return total_time, total_views
+
+
+def _write_view_outputs(args, sample, out, idx, total):
+    """One reference view's PFMs, cam file, image, ply_local cloud and stage
+    jpgs, in the JAX inference tool's layout."""
     import cv2
 
     from mvster_tpu_torch.data.common import write_cam_file
     from mvster_tpu_torch.data.pfm import write_pfm
+    from mvster_tpu_torch.infer.ply import camera_pointcloud, write_ply
 
     filename = sample["filename"]
     cam = sample["proj_matrices"]["stage4"][0]  # reference view, full-res K
@@ -109,10 +164,92 @@ def _write_view_outputs(args, sample, out):
     write_cam_file(path_for("cams", "_cam.txt"), cam[0], intr4)
     img = (np.clip(sample["imgs"][0], 0, 1) * 255).astype(np.uint8)
     cv2.imwrite(path_for("images", ".jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    if idx % args.save_freq == 0:
+        # camera-frame coloured cloud every save_freq views, as the
+        # reference's ply_local dumps (test_mvs4.py:263-264)
+        xyz, rgb = camera_pointcloud(out["depth"][0], cam[1, :3, :3], img)
+        write_ply(path_for("ply_local", ".ply"), xyz, rgb)
+    if args.save_jpg:
+        for s in range(1, 5):
+            cv2.imwrite(path_for("depth_est", f"stage_{s}.jpg"),
+                        colormap_jet(out[f"stage{s}_depth"][0]))
+    if idx % 10 == 0:
+        print(f"view {idx}/{total} written")
 
 
-def main(argv=None):
+def fuse_scan(args, scan: str, device: torch.device | str) -> str:
+    """Filter and fuse one scan's saved depth maps into a point cloud on
+    `device`; writes the mask PNGs and the PLY, returns the PLY's path."""
+    import cv2
+
+    from mvster_tpu_torch.data.common import read_cam_file, read_image, read_pair_file
+    from mvster_tpu_torch.data.pfm import read_pfm
+    from mvster_tpu_torch.infer.fusion import fuse_scene
+    from mvster_tpu_torch.infer.ply import write_ply
+
+    scan_dir = os.path.join(args.outdir, scan)
+    if args.dataset == "tanks":  # tanks scans live under the split's directory
+        pair_path = os.path.join(args.testpath, args.split, scan, "pair.txt")
+    else:  # general_eval, eth3d: testpath/<scan>/pair.txt
+        pair_path = os.path.join(args.testpath, scan, "pair.txt")
+    pair_data = read_pair_file(pair_path)
+
+    depths, confs, intrinsics, extrinsics, images = {}, {}, {}, {}, {}
+    for vid in sorted({v for ref, srcs in pair_data for v in [ref, *srcs]}):
+        cam = read_cam_file(os.path.join(scan_dir, f"cams/{vid:08d}_cam.txt"))
+        intrinsics[vid] = cam.intrinsics
+        extrinsics[vid] = cam.extrinsics
+        depths[vid] = read_pfm(os.path.join(scan_dir, f"depth_est/{vid:08d}.pfm"))[0]
+        confs[vid] = read_pfm(os.path.join(scan_dir, f"confidence/{vid:08d}.pfm"))[0]
+        images[vid] = read_image(os.path.join(scan_dir, f"images/{vid:08d}.jpg"))
+
+    xyz, rgb, masks = fuse_scene(
+        pair_data, depths, confs, intrinsics, extrinsics, images,
+        conf_thresh=args.conf, thres_view=args.thres_view, device=device,
+    )
+    # per-view mask dumps, as the reference's mask/*_photo|geo|final.png
+    mask_dir = os.path.join(scan_dir, "mask")
+    os.makedirs(mask_dir, exist_ok=True)
+    for vid, m in masks.items():
+        for kind in ("photo", "geo", "final"):
+            cv2.imwrite(os.path.join(mask_dir, f"{vid:08d}_{kind}.png"),
+                        (m[kind] * 255).astype(np.uint8))
+        print(f"{scan} view {vid:02d} photo/geo/final: "
+              f"{m['photo'].mean():.3f}/{m['geo'].mean():.3f}/{m['final'].mean():.3f}")
+
+    ply_name = f"mvsnet{int(scan[4:]):03d}_l3.ply" if scan.startswith("scan") else f"{scan}.ply"
+    out_path = os.path.join(args.outdir, ply_name)
+    write_ply(out_path, xyz, rgb)
+    print(f"saved {len(xyz)} points to {out_path}")
+    return out_path
+
+
+def fusion_scan_list(args, testlist):
+    """The scans to filter and fuse: the testlist, or for tanks and eth3d
+    (whose inference runs the whole split) the split's scans."""
+    if args.dataset == "tanks":
+        from mvster_tpu_torch.data.tanks import ADVANCED, INTERMEDIATE
+
+        return INTERMEDIATE if args.split == "intermediate" else ADVANCED
+    if args.dataset == "eth3d":
+        from mvster_tpu_torch.data.eth3d import TEST_SCANS
+
+        return TEST_SCANS
+    return testlist
+
+
+def main(argv=None) -> dict[str, Any]:
+    """Run the tool; returns its wall times in seconds: forward (the
+    forwards alone), depth (forwards and writing the views), fusion per
+    scan, metric (or None) and the number of views."""
     args = build_test_parser().parse_args(argv)
+    if args.filter_method != "normal":
+        # the reference declares --filter_method gipuma but ships no
+        # implementation (test_mvs4.py:60)
+        raise NotImplementedError(
+            f"--filter_method {args.filter_method!r}: only 'normal' is "
+            "implemented (the reference's gipuma path is unimplemented too)"
+        )
     if args.use_raw_train:
         args.max_h, args.max_w = 1200, 1600
     if args.testlist != "all" and os.path.isfile(args.testlist):
@@ -122,7 +259,7 @@ def main(argv=None):
         testlist = [args.testlist]
 
     device = resolve_device(args.device)
-    # full float32 convolutions, as the reference computes them
+    # full float32 convolutions and matmuls, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = model_config_from_args(args)
@@ -130,21 +267,28 @@ def main(argv=None):
     model.load_state_dict(load_reference_ckpt(args.loadckpt, config), strict=True)
     model = model.to(device).eval()
 
-    dataset_cls = find_dataset_def(args.dataset)
-    total_time, total_views = 0.0, 0
-    for scan in testlist:
-        dataset = dataset_cls(
-            args.testpath, [scan], "test", args.num_view, args.interval_scale,
-            max_h=args.max_h, max_w=args.max_w,
-        )
-        samples = (dataset[i] for i in range(len(dataset)))
-        for idx, (sample, out) in enumerate(infer_views(model, samples, args.eval_batch)):
-            total_time += out["seconds"] / out["chunk_views"]
-            total_views += 1
-            _write_view_outputs(args, sample, out)
-            if idx % 10 == 0:
-                print(f"view {idx}/{len(dataset)} written")
-    print(f"avg time: {total_time / max(total_views, 1):.4f} s/view on {device}")
+    t0 = time.perf_counter()
+    forward_s, views = save_depth(args, model, testlist)
+    times: dict[str, Any] = {"forward": forward_s, "depth": time.perf_counter() - t0,
+                             "views": views, "fusion": {}, "metric": None}
+    print(f"avg time: {forward_s / max(views, 1):.4f} s/view on {device}")
+
+    for scan in fusion_scan_list(args, testlist):
+        t0 = time.perf_counter()
+        fuse_scan(args, scan, device)
+        times["fusion"][scan] = time.perf_counter() - t0
+
+    if args.dataset.startswith("general") and args.dtu_gt_dir:
+        from mvster_tpu_torch.eval.dtu_metric import evaluate_dtu
+
+        t0 = time.perf_counter()
+        scan_ids = [int(s[4:]) for s in testlist if s.startswith("scan")]
+        summary = evaluate_dtu(args.outdir, args.dtu_gt_dir, scan_ids)
+        times["metric"] = time.perf_counter() - t0
+        print(json.dumps(summary, indent=2))
+        with open(os.path.join(args.outdir, "dtu_metrics.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    return times
 
 
 if __name__ == "__main__":

@@ -597,3 +597,187 @@ def assert_stage_close(ref_out, our_out, atol=2e-3):
         frac = mismatch[decisive].mean() if decisive.any() else 0.0
         assert frac <= 0.01, f"{key} decisive-pixel depth mismatch {frac}"
     np.testing.assert_allclose(our_out["depth"], our_out["stage4"]["depth"])
+
+
+# ---- the serving path: scans on disk, the DTU ground truth, fusion's edges
+
+def _write_cam(path, extr, intr, depth_line):
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        for row in extr:
+            f.write(" ".join(map(str, row)) + "\n")
+        f.write("\nintrinsic\n")
+        for row in intr:
+            f.write(" ".join(map(str, row)) + "\n")
+        f.write(f"\n{depth_line}\n")
+
+
+def _write_pair(path, n_views):
+    """Every view a reference, every other view a source."""
+    with open(path, "w") as f:
+        f.write(f"{n_views}\n")
+        for v in range(n_views):
+            srcs = [s for s in range(n_views) if s != v]
+            f.write(f"{v}\n{len(srcs)} ")
+            f.write(" ".join(f"{s} {100 - i}" for i, s in enumerate(srcs)) + "\n")
+
+
+def plane_baselines(n_views, baseline):
+    """x offsets of the source cameras: +b, -b, +2b, -2b, ..."""
+    return tuple(baseline * (i // 2 + 1) * (1 if i % 2 == 0 else -1)
+                 for i in range(n_views - 1))
+
+
+def write_plane_scan(root, scan="scan1", n_views=3, h=128, w=128, z=600.0,
+                     baseline=300.0):
+    """A DTU test scan (general_eval layout: images/, cams/ with full-size
+    intrinsics and the depth line "425.0 2.66", pair.txt listing every
+    other view as a source) of tests/helpers.plane_scene_sample's textured
+    plane at depth z, the cameras offset along x by plane_baselines.  At 3
+    views and the defaults it is scripts/smoke_test_cli.write_scan's scan,
+    written without JAX.  Returns (scan, K (3, 3), [extrinsics (4, 4)]).
+    """
+    import cv2
+
+    from helpers import plane_scene_sample
+
+    sample = plane_scene_sample(0, h=h, w=w, z=z,
+                                baselines=plane_baselines(n_views, baseline))
+    imgs = sample["imgs"][0]
+    imgs = (imgs - imgs.min()) / (imgs.max() - imgs.min())
+    os.makedirs(f"{root}/{scan}/images", exist_ok=True)
+    os.makedirs(f"{root}/{scan}/cams", exist_ok=True)
+    projs = sample["proj_matrices"]["stage4"][0]  # full-size K
+    for v in range(n_views):
+        cv2.imwrite(f"{root}/{scan}/images/{v:08d}.jpg",
+                    cv2.cvtColor((imgs[v] * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+        _write_cam(f"{root}/{scan}/cams/{v:08d}_cam.txt", projs[v, 0],
+                   projs[v, 1, :3, :3], "425.0 2.66")
+    _write_pair(f"{root}/{scan}/pair.txt", n_views)
+    return scan, projs[0, 1, :3, :3].copy(), [projs[v, 0].copy() for v in range(n_views)]
+
+
+def plane_gt_points(intr, extrs, h, w, z, spacing, min_views=1):
+    """Ground truth for a plane scan: points of the world plane at depth z on
+    a grid of `spacing` over what at least min_views of the fronto-parallel
+    cameras (intr (3, 3), world-to-camera extrs) see of it, as (N, 3)
+    float32."""
+    intr = np.asarray(intr, np.float64)
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]],
+                       np.float64).T
+    cam = np.linalg.inv(intr) @ corners * z
+    world = np.concatenate([
+        (np.linalg.inv(np.asarray(e, np.float64)) @ np.vstack([cam, np.ones(4)]))[:2]
+        for e in extrs], axis=1)
+    xs = np.arange(world[0].min(), world[0].max() + spacing, spacing)
+    ys = np.arange(world[1].min(), world[1].max() + spacing, spacing)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    pts = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z)], 1)
+    seen = np.zeros(len(pts), np.int64)
+    for e in extrs:
+        p = intr @ (np.asarray(e, np.float64)[:3, :3] @ pts.T + np.asarray(e, np.float64)[:3, 3:])
+        u, v = p[0] / p[2], p[1] / p[2]
+        seen += (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
+    return pts[seen >= min_views].astype(np.float32)
+
+
+def write_dtu_gt_tree(gt_dir, scan_id, stl, res=4.0):
+    """A DTU SampleSet "MVS Data" tree for one scan: Points/stl/stl<id>_total.ply
+    (the (N, 3) ground-truth cloud), ObsMask/ObsMask<id>_10.mat (every voxel
+    of res mm over the cloud's box, grown by 10 mm, observed) and
+    ObsMask/Plane<id>.mat (a ground plane 50 mm beyond the deepest point, so
+    every ground-truth point lies above it), written with scipy.io.savemat."""
+    from scipy.io import savemat
+
+    from mvster_tpu_torch.infer.ply import write_ply
+
+    os.makedirs(f"{gt_dir}/Points/stl", exist_ok=True)
+    os.makedirs(f"{gt_dir}/ObsMask", exist_ok=True)
+    write_ply(f"{gt_dir}/Points/stl/stl{scan_id:03d}_total.ply", stl)
+    bb = np.stack([stl.min(0) - 10.0, stl.max(0) + 10.0]).astype(np.float64)
+    dims = tuple(int(n) for n in np.ceil((bb[1] - bb[0]) / res) + 1)
+    savemat(f"{gt_dir}/ObsMask/ObsMask{scan_id}_10.mat",
+            {"ObsMask": np.ones(dims, np.uint8), "BB": bb, "Res": np.float64(res)})
+    savemat(f"{gt_dir}/ObsMask/Plane{scan_id}.mat",
+            {"P": np.array([[0.0], [0.0], [-1.0], [float(stl[:, 2].max()) + 50.0]])})
+
+
+def write_tanks_tree(root, split="intermediate", n_views=3, h=1080, w=1920, seed=0):
+    """A Tanks and Temples tree (`<split>/<scan>/` with images/, cams/ and
+    pair.txt) holding every scan of the split, each n_views views of
+    tests/helpers.plane_scene_sample's textured plane at depth 600 (one
+    rendering shared by the scans), full-size intrinsics and the depth line
+    "425.0 2.66 192 935.72".  Returns the split's scans."""
+    import cv2
+
+    from helpers import plane_scene_sample
+    from mvster_tpu_torch.data.tanks import ADVANCED, INTERMEDIATE
+
+    sample = plane_scene_sample(seed, h=h, w=w, z=600.0,
+                                baselines=plane_baselines(n_views, 40.0))
+    imgs = sample["imgs"][0]
+    imgs = (255 * (imgs - imgs.min()) / (imgs.max() - imgs.min())).astype(np.uint8)
+    projs = sample["proj_matrices"]["stage4"][0]
+    scans = INTERMEDIATE if split == "intermediate" else ADVANCED
+    for scan in scans:
+        d = f"{root}/{split}/{scan}"
+        os.makedirs(f"{d}/images", exist_ok=True)
+        os.makedirs(f"{d}/cams", exist_ok=True)
+        for v in range(n_views):
+            cv2.imwrite(f"{d}/images/{v:08d}.jpg", cv2.cvtColor(imgs[v], cv2.COLOR_RGB2BGR))
+            _write_cam(f"{d}/cams/{v:08d}_cam.txt", projs[v, 0], projs[v, 1, :3, :3],
+                       "425.0 2.66 192 935.72")
+        _write_pair(f"{d}/pair.txt", n_views)
+    return scans
+
+
+def write_eth3d_tree(root, n_views=2, h=120, w=192, seed=0):
+    """An ETH3D tree (`<scan>/` with images/, cams_1/ and pair.txt) holding
+    every test scan: n_views random h x w images a scan, cameras on a 0.2
+    baseline, and depth lines whose minimum is negative in even scans (the
+    loader clamps it to 1) and positive in odd ones.  Returns the scans."""
+    import cv2
+
+    from mvster_tpu_torch.data.eth3d import TEST_SCANS
+
+    rng = np.random.default_rng(seed)
+    focal = 1.5 * w
+    for i, scan in enumerate(TEST_SCANS):
+        os.makedirs(f"{root}/{scan}/images", exist_ok=True)
+        os.makedirs(f"{root}/{scan}/cams_1", exist_ok=True)
+        _write_pair(f"{root}/{scan}/pair.txt", n_views)
+        for v in range(n_views):
+            cv2.imwrite(f"{root}/{scan}/images/{v:08d}.jpg",
+                        (rng.uniform(size=(h, w, 3)) * 255).astype(np.uint8))
+            extr = np.eye(4)
+            extr[:3, 3] = [v * 0.2, 0, 0]
+            intr = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+            line = "-1.0 0.01 192 5.0" if i % 2 == 0 else "1.5 0.01 192 5.0"
+            _write_cam(f"{root}/{scan}/cams_1/{v:08d}_cam.txt", extr, intr, line)
+    return TEST_SCANS
+
+
+FUSION_EDGE = 1e-4  # px and relative depth: a pixel this close to a threshold may flip
+
+
+def fusion_edge_pixels(ref_depth, ref_intr, ref_extr, src_depths, src_intrs, src_extrs,
+                       dist_thresh=1.0, rel_depth_thresh=0.01, margin=FUSION_EDGE):
+    """(H, W) bool numpy: the pixels where some source's reprojection distance
+    or relative depth difference lies within `margin` of its threshold, by
+    the port's reprojection on the CPU (torch tensors or numpy in)."""
+    from mvster_tpu_torch.infer.fusion import reprojection_errors
+
+    args = [torch.as_tensor(np.asarray(x, np.float32)) for x in
+            (ref_depth, ref_intr, ref_extr, src_depths, src_intrs, src_extrs)]
+    _, dist, rel = reprojection_errors(*args)
+    near = ((dist - dist_thresh).abs() < margin) | ((rel - rel_depth_thresh).abs() < margin)
+    return near.any(0).numpy()
+
+
+def assert_masks_agree(got, want, edge, what=""):
+    """Boolean maps equal but at edge pixels; returns the pixels that differ."""
+    got, want = np.asarray(got), np.asarray(want)
+    differ = got != want
+    off_edge = differ & ~edge
+    assert not off_edge.any(), f"{what}: {int(off_edge.sum())} pixels differ off the edge"
+    return int(differ.sum())

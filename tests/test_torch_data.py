@@ -10,7 +10,10 @@
     (_torch_parity.write_dtu_tree); PFM round trips equal across packages;
     the loader's batches equal; BlendedMVSDataset samples (robust training
     on, same seed and epoch, and off) equal the JAX package's on a synthetic
-    BlendedMVS tree (_torch_parity.write_blendedmvs_tree).
+    BlendedMVS tree (_torch_parity.write_blendedmvs_tree); the Tanks and
+    ETH3D test loaders equal the JAX package's on synthetic trees
+    (_torch_parity.write_tanks_tree, write_eth3d_tree), both splits of
+    Tanks, and raise as they do when a scan of the split is missing.
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ from _torch_parity import (
     plane_batch,
     write_blendedmvs_tree,
     write_dtu_tree,
+    write_eth3d_tree,
+    write_tanks_tree,
 )
 from mvster_tpu_torch.data import MVSLoader, find_dataset_def
 from mvster_tpu_torch.data.common import nearest_resize
@@ -92,6 +97,8 @@ def _assert_same_tree(got, want, path=""):
         assert got.keys() == want.keys(), path
         for k in want:
             _assert_same_tree(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, str):
+        assert got == want, path
     else:
         assert got.dtype == want.dtype, path
         np.testing.assert_array_equal(got, want, err_msg=path)
@@ -155,3 +162,74 @@ def test_blendedmvs_dataset_equals_the_jax_package(blended_tree, split, kw):
     dmin, dmax = sample["depth_values"]
     assert (80.0 <= dmin <= 125.0) if kw["robust_train"] else dmin == 100.0
     assert dmax > dmin and sample["mask"]["stage4"].sum() > 0
+
+
+@pytest.fixture(scope="module")
+def tanks_tree(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tanks"))
+    for split in ("intermediate", "advanced"):
+        write_tanks_tree(root, split, n_views=3, h=120, w=96)  # 1080 -> 1024 as 120 -> 64
+    return root
+
+
+@pytest.mark.parametrize("split", ["intermediate", "advanced"])
+def test_tanks_dataset_equals_the_jax_package(tanks_tree, split):
+    import mvster_tpu.data as jax_data
+
+    ours = find_dataset_def("tanks")(tanks_tree, n_views=3, split=split)
+    theirs = jax_data.find_dataset_def("tanks")(tanks_tree, n_views=3, split=split)
+    n_scans = 8 if split == "intermediate" else 6
+    assert ours.metas == theirs.metas and len(ours) == 3 * n_scans
+    for idx in (0, 4, len(ours) - 1):
+        _assert_same_tree(ours[idx], theirs[idx], f"{split} #{idx}")
+    sample = ours[0]
+    assert sample["imgs"].shape == (3, 64, 96, 3)
+    k1 = sample["proj_matrices"]["stage1"][0, 1]  # cy - 28, at the stage-1 basis
+    np.testing.assert_allclose(k1[1, 2], (60 - 28) * 0.125, rtol=1e-6)
+    assert sample["depth_values"].tolist() == [425.0, pytest.approx(935.72)]
+
+
+def test_tanks_dataset_raises_for_a_missing_scan(tanks_tree, tmp_path):
+    import shutil
+
+    import mvster_tpu.data as jax_data
+
+    root = str(tmp_path / "partial")
+    shutil.copytree(tanks_tree, root)
+    shutil.rmtree(f"{root}/intermediate/Horse")
+    for find in (find_dataset_def, jax_data.find_dataset_def):
+        with pytest.raises(FileNotFoundError, match="Horse"):
+            find("tanks")(root, n_views=3, split="intermediate")
+
+
+@pytest.fixture(scope="module")
+def eth3d_tree(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("eth3d"))
+    write_eth3d_tree(root, n_views=3, h=120, w=192)
+    return root
+
+
+@pytest.mark.parametrize("img_wh", [(256, 128), (128, 64)])
+def test_eth3d_dataset_equals_the_jax_package(eth3d_tree, img_wh):
+    import mvster_tpu.data as jax_data
+
+    ours = find_dataset_def("eth3d")(eth3d_tree, n_views=3, img_wh=img_wh)
+    theirs = jax_data.find_dataset_def("eth3d")(eth3d_tree, n_views=3, img_wh=img_wh)
+    assert ours.metas == theirs.metas and len(ours) == 3 * 12
+    for idx in (0, 3, 7, len(ours) - 1):  # even scans' cams say depth_min -1, odd 1.5
+        _assert_same_tree(ours[idx], theirs[idx], f"{img_wh} #{idx}")
+    assert ours[0]["depth_values"][0] == 1.0 and ours[3]["depth_values"][0] == 1.5
+    assert ours[0]["imgs"].shape == (3, img_wh[1], img_wh[0], 3)
+
+
+def test_eth3d_dataset_raises_for_a_missing_scan(eth3d_tree, tmp_path):
+    import shutil
+
+    import mvster_tpu.data as jax_data
+
+    root = str(tmp_path / "partial")
+    shutil.copytree(eth3d_tree, root)
+    shutil.rmtree(f"{root}/statue")
+    for find in (find_dataset_def, jax_data.find_dataset_def):
+        with pytest.raises(FileNotFoundError, match="statue"):
+            find("eth3d")(root, n_views=3)
