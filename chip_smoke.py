@@ -98,6 +98,25 @@ Phases, one line each, any failure exits non-zero:
      scans, 3 views each at 1920x1080, thres_view 1: 96 K1 launches and 8
      fused PLYs; then K1 against plain at that forward's four stage shapes
      (128x240 to 1024x1920, 2 sources), both attention modes, atol/rtol 1e-4
+ 20. data parallel: (a) `python -m torch.distributed.run --standalone
+     --nproc_per_node 1 -m chip_smoke --ddp-entry ...`, whose process runs
+     tools.train.main under torchrun's environment (the code path of
+     `-m mvster_tpu_torch.tools.train`) at DTU-mid, dtu_default(), 5 views,
+     global batch 2, --ot_backend pallas, one epoch on phase 8's tree: the
+     group is NCCL of world 1; 16 K2, 16 K3, 4 K4 and 4 K5 launches a step
+     and 4 K1 and 4 K4 a val batch; the checkpoint has no `module.` keys,
+     loads strictly into a one-process model and serves a request through
+     K1; then the DDP-wrapped step against the unwrapped one in that
+     process, in turns (CUDA events).  (b) two processes on the one card
+     over gloo (`--gloo-rank`), batch 2 each (global 4; rank 1's masks
+     halved, so the ranks' counts differ), --ot_backend pallas, one SGD
+     step, against one process's batch-4 step on the card: loss and every
+     scalar at rtol 1e-5 (the pixel fractions, range_err_ratio and the
+     thresholds, at atol 1e-4 more: values within float32 rounding of a
+     threshold), parameters at rtol 1e-2 / atol 1e-5, BatchNorm
+     running statistics bitwise equal across the ranks and at rtol 1e-4 /
+     atol 1e-5 against the one process; each rank's step times and peak
+     memory (gloo on one card: not a DDP speed)
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -105,7 +124,8 @@ and K3 for one source view per stage, as one launch covers; every kernel
 timed queued, with its back-to-back time beside; K1's launches are phase
 5's, with those of phases 5, 17 and 19 under launches_by_path, and its
 max_abs_err the largest of phases 3, 17 and 19, each under
-max_abs_err_by_path), and
+max_abs_err_by_path; every kernel's launches on phase 20 (a)'s path
+under launches_by_path), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1439,6 +1459,283 @@ def phase19_tanks(dev, tmp, ckpt, card):
     return k1, err
 
 
+# phase 20: data parallel.  (a) the entry point under torchrun; (b) two
+# gloo ranks on the one card (NCCL puts no two ranks on one device) at the
+# published per-GPU batch of 2, against one process's batch of 4
+DDP_ENTRY, GLOO_RANK = "--ddp-entry", "--gloo-rank"
+DDP_WORLD, DDP_LR = 2, 1e-3
+# the scalars that count pixels: they may differ by a hundredth of a
+# percent of the pixels (a few hundred thousand a stage at DTU-mid)
+PIXEL_FRACTIONS, PIXEL_ATOL = ("thres", "s0_range", "s1_range", "s2_range", "s3_range"), 1e-4
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in (
+        ("K1", warp_correlate.fused_cost_volume), ("K2", warp_vjp.warp_gather),
+        ("K3", warp_vjp.scatter_grad), ("K4", sinkhorn_ot.sinkhorn_fwd),
+        ("K5", sinkhorn_ot.sinkhorn_bwd))}
+
+
+def ddp_entry(out, argv):
+    """Phase 20 (a), in the process that torchrun starts: join its group,
+    run tools.train.main(argv) in it with every kernel count at 0 just
+    before, then time the step wrapped in DDP against the same step
+    unwrapped, in turns (CUDA events); the results go to `out` (JSON)."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from mvster_tpu_torch.dist.mesh import maybe_initialize_distributed, rank_device
+    from mvster_tpu_torch.models.losses import mvs4net_loss
+    from mvster_tpu_torch.tools import train
+
+    maybe_initialize_distributed("cuda")
+    dev = rank_device("cuda")
+    _reset_counts()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+
+    batch = dtu_batch(argv[argv.index("--trainpath") + 1], dev)
+    steps = {}
+    for name in ("ddp", "plain"):
+        model = MVS4Net(MVS4NetConfig.dtu_default())
+        model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+        model.to(dev)
+        net = (DistributedDataParallel(model, device_ids=[dev.index], broadcast_buffers=False)
+               if name == "ddp" else model)
+        step = make_train_step(net, torch.optim.Adam(model.parameters(), lr=1e-3), mvs4net_loss,
+                               dict(LOSS_KW, ot_backend="pallas"))
+        steps[name] = lambda step=step: step(batch)
+        steps[name]()
+        steps[name]()
+    ms = {name: [] for name in steps}
+    for name in ("ddp", "plain", "plain", "ddp"):
+        ms[name].append(cuda_ms(steps[name], iters=5, warmup=0))
+    with open(out, "w") as f:
+        json.dump(dict(result, backend=dist.get_backend(), world=dist.get_world_size(),
+                       launches=launches, step_ms=ms), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase20_ddp_entry(dev, tmp, root, card):
+    """python -m torch.distributed.run --standalone --nproc_per_node 1 at
+    DTU-mid, global batch 2, --ot_backend pallas, one epoch on phase 8's
+    tree; the process runs tools.train.main (ddp_entry).  Returns its
+    kernel launches."""
+    out = os.path.join(tmp, "ddp_entry.json")
+    argv = ["--trainpath", root, "--trainlist", f"{root}/train.txt", "--testlist",
+            f"{root}/train.txt", "--logdir", os.path.join(tmp, "log_ddp"),
+            "--ot_backend", "pallas", *TRAIN_FLAGS]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "chip_smoke", DDP_ENTRY, out, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    run_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    if (res["backend"], res["world"], res["world_size"], res["rank"]) != ("nccl", 1, 1, 0):
+        raise AssertionError(f"process group {res['backend']} of {res['world']}")
+    steps = res["steps"]
+    val_batches = -(-NVIEWS * 7 // BATCH)
+    views = 4 * (NVIEWS - 1)
+    expect = dict(K1=4 * val_batches, K2=views * steps, K3=views * steps,
+                  K4=4 * steps + 4 * val_batches, K5=4 * steps)
+    if steps != NVIEWS * 7 // BATCH or res["launches"] != expect:
+        raise AssertionError(f"{steps} steps, launches {res['launches']}, expected {expect}")
+    if not np.isfinite(res["val"]["loss"]):
+        raise AssertionError(f"val {res['val']}")
+
+    config = MVS4NetConfig.dtu_default()
+    state = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)["model"]
+    if any(k.startswith("module.") for k in state):
+        raise AssertionError("the checkpoint holds DDP's module. keys")
+    model = MVS4Net(config)
+    model.load_state_dict(state, strict=True)
+    model.to(dev).eval()
+    s = synthetic_sample(20, nviews=NVIEWS, h=H, w=W)
+    request = {"imgs": s["imgs"][0], "depth_values": s["depth_values"][0],
+               "proj_matrices": {k: v[0] for k, v in s["proj_matrices"].items()}}
+    warp_correlate.fused_cost_volume.launches = 0
+    served = list(infer_views(model, [request]))
+    k1 = warp_correlate.fused_cost_volume.launches
+    if k1 != 4 or not np.isfinite(served[0][1]["depth"]).all():
+        raise AssertionError(f"checkpoint serving: {k1} K1 launches")
+    ms = res["step_ms"]
+    log(f"[20a ddp entry] torchrun --nproc_per_node 1 -m tools.train: NCCL, world 1, {steps} "
+        f"steps of global batch {BATCH} at {H}x{W}, {NVIEWS} views, --ot_backend pallas + a "
+        f"val pass of {val_batches} batches in {run_s:.1f} s (process start and nvcc-free "
+        f"library load included); val loss {res['val']['loss']:.4f}; launches "
+        f"{res['launches']} (per step {views} K2, {views} K3, 4 K4, 4 K5; per val batch 4 "
+        f"K1, 4 K4); the checkpoint has no module. keys, loaded strictly and served a "
+        f"request through {k1} K1 launches | {card}")
+    log(f"[20a times] DTU-mid train step, batch {BATCH}, pallas, Adam, in that process (mean "
+        f"of 5 after 2 warm-up, CUDA events, in turns ddp, plain, plain, ddp): DDP (NCCL, "
+        f"world 1) " + " / ".join(f"{x:.2f}" for x in ms["ddp"]) + " ms, unwrapped "
+        + " / ".join(f"{x:.2f}" for x in ms["plain"]) + f" ms | {card}")
+    return res["launches"]
+
+
+def _gloo_batch(root):
+    """The DTU tree's first 4 training samples (numpy), rank 1's two with
+    the left half of every stage's mask cut, so the ranks' counts differ."""
+    from mvster_tpu_torch.data import MVSLoader
+    from mvster_tpu_torch.data.dtu import DTUDataset
+
+    ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
+    batch = next(iter(MVSLoader(ds, 2 * BATCH, prefetch=0)))
+    batch = {k: v for k, v in batch.items() if not isinstance(v, (list, str))}
+    batch["mask"] = {k: v.copy() for k, v in batch["mask"].items()}
+    for v in batch["mask"].values():
+        v[BATCH:, :, : v.shape[2] // 2] = 0
+    return batch
+
+
+def _shard(batch, rank):
+    if isinstance(batch, dict):
+        return {k: _shard(v, rank) for k, v in batch.items()}
+    return batch[rank * BATCH:(rank + 1) * BATCH]
+
+
+def _sgd_step(model, batch):
+    """One SGD step (lr 1e-3) of dtu_default() from tools.train's initial
+    weights (seed 1) with --ot_backend pallas: (scalars, state after, ms)."""
+    from mvster_tpu_torch.models.losses import mvs4net_loss
+    from mvster_tpu_torch.train.loop import device_batch
+
+    module = getattr(model, "module", model)
+    step = make_train_step(model, torch.optim.SGD(module.parameters(), lr=DDP_LR), mvs4net_loss,
+                           dict(LOSS_KW, ot_backend="pallas"))
+    dev = next(module.parameters()).device
+    b = device_batch(batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    scalars, _ = step(b)
+    end.record()
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in scalars.items()},
+            {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()},
+            start.elapsed_time(end), torch.cuda.max_memory_allocated(dev))
+
+
+def _seeded_model(dev):
+    model = MVS4Net(MVS4NetConfig.dtu_default())
+    model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+    return model.to(dev)
+
+
+def gloo_rank(tmp):
+    """Phase 20 (b), one of two ranks on the one card: join over gloo from
+    torchrun's environment variables, one SGD step of DDP on this rank's
+    shard, then three more timed; results to <tmp>/rank<r>.pt."""
+    import pickle
+
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from mvster_tpu_torch.dist.mesh import maybe_initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rank, world = maybe_initialize_distributed(dev, backend="gloo")
+    with open(os.path.join(tmp, "gloo_batch.pkl"), "rb") as f:
+        batch = _shard(pickle.load(f), rank)
+    model = DistributedDataParallel(_seeded_model(dev), device_ids=[0], broadcast_buffers=False)
+    scalars, state, first_ms, peak = _sgd_step(model, batch)
+    ms = [_sgd_step(model, batch)[2] for _ in range(3)]
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(dict(rank=rank, world=world, backend=dist.get_backend(), scalars=scalars,
+                         state=state, first_ms=first_ms, ms=ms, peak=peak), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase20_gloo_pair(dev, tmp, root, card):
+    """Two processes on the one card over gloo, batch 2 each (global 4),
+    one SGD step, against one process's batch-4 step on the card."""
+    import pickle
+    import socket
+
+    batch = _gloo_batch(root)
+    with open(os.path.join(tmp, "gloo_batch.pkl"), "wb") as f:
+        pickle.dump(batch, f)
+    one, one_state, one_ms, one_peak = _sgd_step(_seeded_model(dev), batch)
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(DDP_WORLD), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen([sys.executable, "-m", "chip_smoke", GLOO_RANK, tmp], cwd=ROOT,
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DDP_WORLD)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    if [(x["rank"], x["world"], x["backend"]) for x in ranks] != [(0, 2, "gloo"), (1, 2, "gloo")]:
+        raise AssertionError(f"groups {[(x['rank'], x['world'], x['backend']) for x in ranks]}")
+    worst_scalar = worst_param = worst_stat = 0.0
+    flips = set()
+    for x in ranks:
+        for key, want in one.items():
+            diff = abs(x["scalars"][key] - want)
+            if diff > 1e-5 * abs(want) + 1e-7:
+                # a pixel fraction: a depth or hypothesis within float32
+                # rounding of its threshold lands on either side under
+                # either batch composition (cuDNN picks other algorithms
+                # at batch 2 and 4; untrained weights leave near-ties in
+                # the depth argmax)
+                if not key.startswith(PIXEL_FRACTIONS) or diff > 1e-5 * abs(want) + PIXEL_ATOL:
+                    raise AssertionError(f"{key}: {x['scalars'][key]} vs one process {want}")
+                flips.add(key)
+            worst_scalar = max(worst_scalar, diff / max(abs(want), 1e-30))
+    a, b = ranks[0]["state"], ranks[1]["state"]
+    for key, want in one_state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_array_equal(a[key], b[key], err_msg=f"ranks differ: {key}")
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(a[key], want, rtol=1e-4, atol=1e-5, err_msg=key)
+            worst_stat = max(worst_stat, float(np.abs(a[key] - want).max()))
+        else:
+            np.testing.assert_allclose(a[key], want, rtol=1e-2, atol=1e-5, err_msg=key)
+            worst_param = max(worst_param, float(np.abs(a[key] - want).max()))
+    log(f"[20b gloo pair] 2 ranks on the one card over gloo, DTU-mid {H}x{W}, {NVIEWS} views, "
+        f"batch {BATCH} each (global {2 * BATCH}; rank 1's masks halved), pallas, one SGD step "
+        f"(lr {DDP_LR}) vs one process's batch-{2 * BATCH} step on the card: loss "
+        f"{ranks[0]['scalars']['loss']:.6f} / {ranks[1]['scalars']['loss']:.6f} vs "
+        f"{one['loss']:.6f}, worst scalar rel diff {worst_scalar:.2e} (rtol 1e-5; the pixel "
+        f"fractions atol {PIXEL_ATOL} more, taken by {sorted(flips) or 'none'}); parameters "
+        f"max|d| {worst_param:.2e} (rtol 1e-2, atol 1e-5); BatchNorm running statistics "
+        f"bitwise equal across the ranks, max|d| {worst_stat:.2e} vs one process (rtol 1e-4, "
+        f"atol 1e-5) | {card}")
+    log(f"[20b times] gloo on one card, not a DDP speed (two processes share the SMs, gloo "
+        f"stages every collective through the host): step ms (CUDA events, first, then 3) "
+        + "; ".join(f"rank {x['rank']} {x['first_ms']:.1f}, "
+                    + " / ".join(f"{m:.1f}" for m in x["ms"])
+                    + f", peak {x['peak'] / 2**30:.3f} GiB" for x in ranks)
+        + f"; one process batch {2 * BATCH}: first step {one_ms:.1f} ms, peak "
+        f"{one_peak / 2**30:.3f} GiB | {card}")
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1565,6 +1862,9 @@ def main():
         dtu_launches, dtu_err, serve = phase17_dtu_scan(dev, tmp, ckpt, card)
         phase18_fusion(dev, tmp, serve, card)
         tanks_launches, tanks_err = phase19_tanks(dev, tmp, ckpt, card)
+        # 20: data parallel, from phase 8's tree
+        ddp_launches = phase20_ddp_entry(dev, tmp, root, card)
+        phase20_gloo_pair(dev, tmp, root, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1573,20 +1873,24 @@ def main():
              plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
              library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"],
              launches_by_path={"serve": main_path_launches, "dtu_scan": dtu_launches,
-                               "tanks": tanks_launches},
+                               "tanks": tanks_launches, "ddp_train": ddp_launches["K1"]},
              max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err}),
         dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
-             library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"]),
+             library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"],
+             launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"]}),
         dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
-             library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"]),
+             library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"],
+             launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"]}),
         dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
-             library_ms=None, back_to_back_ms=ot_sums["k4"]),
+             library_ms=None, back_to_back_ms=ot_sums["k4"],
+             launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"]}),
         dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
-             library_ms=None, back_to_back_ms=ot_sums["k5"]),
+             library_ms=None, back_to_back_ms=ot_sums["k5"],
+             launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1594,4 +1898,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DDP_ENTRY]:
+        sys.exit(ddp_entry(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == [GLOO_RANK]:
+        sys.exit(gloo_rank(sys.argv[2]))
     sys.exit(main())

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mvster_tpu_torch.dist.reduce import global_mean
+
 
 def sinkhorn(
     gt_depth: torch.Tensor,
@@ -28,7 +30,7 @@ def sinkhorn(
     gt_depth (B, H, W); hypo_depth and attn_weight (B, D, H, W); mask
     (B, H, W) bool.  Returns (t_map, loss): the transport plan
     (B, HW, D, Dcols), Dcols = D (+1 with the dustbin), and the masked mean
-    over pixels of <T, C>.
+    over pixels of <T, C> (over the global batch under a process group).
     """
     gt_depth = gt_depth.float()
     hypo_depth = hypo_depth.float()
@@ -71,5 +73,5 @@ def sinkhorn(
     t_map = torch.exp(scaled + u[..., None] + v[..., None, :])
     per_pixel = (t_map * cost).sum(dim=(2, 3)).reshape(-1)
     mask_flat = mask.reshape(-1).float()
-    loss = (per_pixel * mask_flat).sum() / mask_flat.sum().clamp(min=1.0)
+    loss = global_mean((per_pixel * mask_flat).sum(), mask_flat.sum())
     return t_map, loss

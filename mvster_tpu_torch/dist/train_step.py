@@ -1,4 +1,4 @@
-"""Train and eval steps on one device (counterpart of mvster_tpu.dist.train_step).
+"""Train and eval steps, on one device or data parallel (counterpart of mvster_tpu.dist.train_step).
 
 `make_train_step` returns step(batch) -> (scalars, images): one forward in
 train mode, the loss, one backward, one optimizer update (and one
@@ -7,8 +7,19 @@ microbatches whose gradients are summed at the initial parameters (the
 parameters do not change until the update), divided by a, and applied in
 one update; BatchNorm's running statistics move once per microbatch, in
 order; scalars are means over the microbatches and images the whole batch,
-as the JAX package's scanned step gives them.  Data parallelism (DDP) is not
-ported yet.
+as the JAX package's scanned step gives them.
+
+Data parallel: the model may be wrapped in DistributedDataParallel, one
+process a device, each rank holding its shard of the global batch.  DDP
+all-reduces the gradients; BatchNorm moments, every masked-mean loss term
+and the depth metrics are those of the global batch (dist/reduce), so a
+step equals the JAX package's sharded step on the whole batch, and every
+rank returns the same global scalars.  Under grad_accum each rank splits
+its own shard: global microbatch i is the i-th slice of every rank's
+shard (the JAX step splits the global batch into contiguous slices, so the
+two agree on the global batch arranged microbatch-major); every
+microbatch but the last runs under no_sync, so the gradients are
+all-reduced once a step.
 
 The batch is a dict of tensors on the model's device: imgs (B, V, H, W, 3),
 proj_matrices {stage: (B, V, 2, 4, 4)}, depth_values (B, K), depth and
@@ -18,6 +29,7 @@ loader's numpy batch).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -75,7 +87,8 @@ def make_train_step(
     grad_accum: int = 1,
     scheduler=None,
 ):
-    """The train step; `scheduler` (a LambdaLR, say) is stepped after each update."""
+    """The train step of `model` (a module, or one wrapped in DDP);
+    `scheduler` (a LambdaLR, say) is stepped after each update."""
     loss_kwargs = dict(loss_kwargs or {})
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -94,8 +107,12 @@ def make_train_step(
         if grad_accum == 1:
             scalars, images = forward_backward(batch, 1.0)
         else:
-            results = [forward_backward(mb, 1.0 / grad_accum)
-                       for mb in _split(batch, grad_accum)]
+            micro = _split(batch, grad_accum)
+            no_sync = getattr(model, "no_sync", contextlib.nullcontext)
+            results = []
+            for i, mb in enumerate(micro):
+                with no_sync() if i < grad_accum - 1 else contextlib.nullcontext():
+                    results.append(forward_backward(mb, 1.0 / grad_accum))
             scalars = {k: torch.stack([r[0][k] for r in results]).mean()
                        for k in results[0][0]}
             images = {k: torch.cat([r[1][k] for r in results])
@@ -111,7 +128,9 @@ def make_train_step(
 def make_eval_step(model: torch.nn.Module, loss_fn: Callable = mvs4net_loss,
                    loss_kwargs: dict | None = None):
     """No-grad eval step returning the train step's scalar dict (the
-    reference test_sample_depth; the mono branch is off in eval)."""
+    reference test_sample_depth; the mono branch is off in eval).  A DDP
+    model runs unwrapped, its scalars the global batch's."""
+    model = getattr(model, "module", model)
     loss_kwargs = dict(loss_kwargs or {})
     loss_kwargs["mono"] = False
 

@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from mvster_tpu_torch.dist.reduce import global_mean
 from mvster_tpu_torch.kernels._build import check_tensor, load_library, raise_on_error
 
 _LOG_EPS = math.log(1e-12)
@@ -282,7 +283,8 @@ def sinkhorn_loss_fused(gt_depth: torch.Tensor, hypo_depth: torch.Tensor,
                         iters: int = 10, eps: float = 1.0) -> torch.Tensor:
     """Masked-mean discrete Sinkhorn OT loss through K4/K5: gt_depth
     (B, H, W), hypo_depth and attn_weight (B, D, H, W), mask (B, H, W).
-    The same value as core.sinkhorn(..., continuous=False)[1]."""
+    The same value as core.sinkhorn(..., continuous=False)[1], over the
+    global batch under a process group."""
     b, d, h, w = attn_weight.shape
     pred = attn_weight.float().reshape(b, d, h * w).contiguous()
     diff = (hypo_depth.float() - gt_depth.float()[:, None]).abs()
@@ -290,4 +292,4 @@ def sinkhorn_loss_fused(gt_depth: torch.Tensor, hypo_depth: torch.Tensor,
     gt_idx = torch.argmin(diff, dim=1).reshape(b, h * w).to(torch.int32)
     per_pixel = sinkhorn_pixels(pred, gt_idx, iters, eps)
     m = mask.reshape(b, h * w).float()
-    return (per_pixel * m).sum() / m.sum().clamp(min=1.0)
+    return global_mean((per_pixel * m).sum(), m.sum())

@@ -1,6 +1,8 @@
 """Training losses: per-stage Sinkhorn OT supervision + mono L1 (counterpart of mvster_tpu.models.losses).
 
-Masked-mean reductions in float32.  The reference's training script passes
+Masked-mean reductions in float32, over the global batch under a process
+group of several ranks (dist/reduce.global_mean), as in the JAX package's
+data-parallel step.  The reference's training script passes
 `l1ce_lw` while its loss reads `l1ot_lw`, so its published runs always used
 the default (0, 1), pure OT; here, as in the JAX package, `l1ot_lw` is read
 for real and defaults to (0, 1).
@@ -14,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mvster_tpu_torch.core.sinkhorn import sinkhorn
+from mvster_tpu_torch.dist.reduce import global_mean
 from mvster_tpu_torch.kernels.sinkhorn_ot import sinkhorn_loss_fused
 
 
@@ -34,7 +37,7 @@ def _sinkhorn_loss(gt, hypo, attn, mask, iters, eps, continuous, backend="xla"):
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.float()
-    return (x.float() * m).sum() / m.sum().clamp(min=1.0)
+    return global_mean((x.float() * m).sum(), m.sum())
 
 
 def _stage_items(outputs: dict[str, Any]):

@@ -9,7 +9,11 @@ follows each one.
 BatchNorm (eps 1e-5, momentum 0.1 = flax's 0.9) follows flax in training:
 it normalises with the batch's mean and biased variance, as torch does, and
 updates the running buffers with that same biased variance, where torch's
-own BatchNorm would take the unbiased one.
+own BatchNorm would take the unbiased one.  Under a process group of more
+than one rank the moments are those of the global batch, as in the JAX
+package's data-parallel step: one all_reduce of each channel's sum, sum
+of squares and count, the variance as flax's E[x^2] - E[x]^2, and the
+gradient through the sums (dist/reduce.AllSum).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvster_tpu_torch.dist.mesh import world_size
+from mvster_tpu_torch.dist.reduce import AllSum
+
 
 class _FlaxStats:
     """Train-mode BatchNorm with flax's running-statistics update."""
@@ -28,9 +35,28 @@ class _FlaxStats:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if world_size() > 1:
+            return self._global_batch_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [0, *range(2, x.dim())]
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        sums = AllSum.apply(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)

@@ -3,7 +3,8 @@
 The model flags are the JAX package's (add_model_args), mapped onto the
 port's MVS4NetConfig; the test flags are the JAX inference tool's but for
 --vis_ETA and --vis_mono (the attention dumps are not ported); the train
-flags are the JAX training tool's for one process on one device.  Both
+flags are the JAX training tool's, --batch_size the global batch over the
+data-parallel processes that torchrun launches (tools/train.py).  Both
 tools take --device, default cuda, and raise without a card unless given
 --device cpu.
 """
@@ -139,9 +140,9 @@ def loss_kwargs_from_args(args, mono: bool) -> dict:
 
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="mvster_tpu_torch training tool: one process on one "
-                    "device (DTU, or the BlendedMVS fine-tune; data "
-                    "parallelism is not ported yet)",
+        description="mvster_tpu_torch training tool: DTU, or the BlendedMVS "
+                    "fine-tune; one device, or data parallel under torchrun "
+                    "(one process a card)",
     )
     p.add_argument("--mode", default="train", choices=["train", "profile"],
                    help="profile: a torch.profiler trace of 3 train steps")
@@ -155,7 +156,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--lrepochs", type=str, default="6,8,9:2")
     p.add_argument("--lr_scheduler", default="MS", choices=["MS", "cos", "onecycle"])
     p.add_argument("--wd", type=float, default=0.0)
-    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="global batch: split evenly over the processes, "
+                        "so it must divide by their number")
     p.add_argument("--interval_scale", type=float, default=1.06)
     p.add_argument("--loadckpt", default=None,
                    help="initial weights: a reference MVSTER .ckpt or a saved state dict")

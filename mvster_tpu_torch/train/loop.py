@@ -4,7 +4,10 @@
 every summary_freq-th step; `evaluate` runs the eval step over a loader,
 padding a trailing partial batch with zero-mask duplicates
 (`pad_eval_batch`) so every batch has one shape while the metrics stay
-those of the unpadded data.
+those of the unpadded data.  Data parallel, every rank runs both over its
+shard (the loader pads the shards to one length, so every rank takes the
+same steps and joins the same collectives), the step's scalars are
+already the global batch's, and only rank 0 prints (`print_fn`) and logs.
 """
 
 from __future__ import annotations

@@ -4,12 +4,17 @@ The reference's metric set: per-image masked absolute depth error and the
 fraction of pixels above 2/4/8 mm, averaged over images; images with no
 valid pixel are left out of that average, which lets eval pad a trailing
 partial batch with zero-mask duplicates and still report the unpadded
-batch's metric.
+batch's metric.  Under a process group of several ranks the per-image
+means and the count of valid images are summed over the ranks, so the
+metrics are those of the global batch, as in the JAX package's
+data-parallel step.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mvster_tpu_torch.dist.reduce import global_mean
 
 
 def _per_image_masked_mean(values, mask):
@@ -17,7 +22,7 @@ def _per_image_masked_mean(values, mask):
     msum = m.sum(dim=(1, 2))
     per = (values * m).sum(dim=(1, 2)) / msum.clamp(min=1.0)
     w = (msum > 0).float()
-    return (per * w).sum() / w.sum().clamp(min=1.0)
+    return global_mean((per * w).sum(), w.sum())
 
 
 def thres_metric(depth_est, depth_gt, mask, thres: float):

@@ -3,7 +3,10 @@
 Seeds Python's, numpy's and torch's generators.  The data augmentations
 take explicit per-sample seeds (data/common.sample_rng), and the model's
 initial weights come from tools/weights.init_state_dict with their own
-generator, so neither depends on this global state.
+generator, so neither depends on this global state.  Data-parallel ranks
+all take the same seed, as the JAX package draws its weights from one
+PRNGKey: every rank starts from the same weights, and DDP's broadcast of
+rank 0's at construction changes nothing.
 """
 
 from __future__ import annotations

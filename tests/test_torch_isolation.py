@@ -24,7 +24,7 @@ for name in names:
 from mvster_tpu_torch.tools.weights import state_dict_from_jax
 state_dict_from_jax({"params": {"feature": {"out1": {"kernel": np.zeros((1, 1, 2, 2), np.float32)}}}})
 import chip_smoke
-print(len(names))
+print(" ".join(names))
 print(" ".join(sorted(m for m in sys.modules if m.split(".")[0] in %r)))
 """ % (FORBIDDEN,)
 
@@ -36,7 +36,10 @@ def test_importing_every_module_loads_no_jax():
                           text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().split("\n")
-    assert int(lines[0]) >= 30, proc.stdout
+    names = set(lines[0].split())
+    assert len(names) >= 30, proc.stdout
+    # the data-parallel layer too: its process group and its reductions
+    assert {"mvster_tpu_torch.dist.mesh", "mvster_tpu_torch.dist.reduce"} <= names, names
     loaded = set(lines[1].split()) if len(lines) > 1 else set()
     assert loaded <= ALLOWED_LOADED, loaded - ALLOWED_LOADED
 
