@@ -117,6 +117,23 @@ Phases, one line each, any failure exits non-zero:
      running statistics bitwise equal across the ranks and at rtol 1e-4 /
      atol 1e-5 against the one process; each rank's step times and peak
      memory (gloo on one card: not a DDP speed)
+ 21. model variants: each of tests/_torch_parity.VARIANTS (reg3d; the cam,
+     dcam, pam and pdam blocks; the sine and learned depth encodings;
+     asff; the convnext and convnext4 pyramids; dcn; bf16 compute) with
+     seeded random weights at dtu_default's widths: (a) infer_views
+     answers 2 requests at 512x640, 5 views, 4 K1 launches each, finite
+     depth, stage 1 inside [dmin, dmax]; (b) the same model at 128x192, 3
+     views, on the card against the CPU plain path by the stage comparator
+     (bf16: assert_bf16_close, the CPU tests' bf16 criteria); (c) one
+     dist/train_step step at 512x640, 5 views, batch 2, --ot_backend
+     pallas: finite loss, every parameter with a gradient moved, 16 K2, 16
+     K3, 4 K4 and 4 K5 launches.  Then tools.train.main --reg_mode reg3d
+     --pos_enc 2 --ASFF --ot_backend pallas, one epoch of phase 8's tree (16
+     K2, 16 K3 and 4 K5 launches a step; its checkpoint loads strictly into
+     the variant), and tools.test.main --compute_dtype bfloat16 on phase
+     17's scan (28 K1 launches, 7 finite depth maps); and the bf16 and
+     float32 forward (20 iterations) and train step (5 steps after 2 of
+     warm-up) by CUDA events, in turns, with their peak memory
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -125,7 +142,7 @@ timed queued, with its back-to-back time beside; K1's launches are phase
 5's, with those of phases 5, 17 and 19 under launches_by_path, and its
 max_abs_err the largest of phases 3, 17 and 19, each under
 max_abs_err_by_path; every kernel's launches on phase 20 (a)'s path
-under launches_by_path), and
+and over phase 21's paths under launches_by_path), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -150,6 +167,8 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from _torch_parity import (  # noqa: E402
     FUSION_EDGE,
     GRAD_NOISE,
+    VARIANTS,
+    assert_bf16_close,
     assert_masks_agree,
     assert_stage_close,
     fusion_edge_pixels,
@@ -356,7 +375,7 @@ def k2_work(h, w, c, d, b=BATCH):
     return nbytes, n * (7 * c + 20), n * (8 * c + 20)
 
 
-def profile_forward(model, inputs, fwd_ms, card, n=5):
+def profile_forward(model, inputs, fwd_ms, card, n=5, label="6 times"):
     """torch.profiler over n eval forwards: device-busy ms a forward, its
     share of the CUDA-event time fwd_ms, launches, K1's share, top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -371,7 +390,7 @@ def profile_forward(model, inputs, fwd_ms, card, n=5):
     busy = sum(dev_us.values()) / n / 1e3
     k1 = sum(v for k, v in dev_us.items() if "warp_correlate_kernel" in k) / n / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[6 times] profile of {n} forwards: device busy {busy:.3f} ms a forward "
+    log(f"[{label}] profile of {n} forwards: device busy {busy:.3f} ms a forward "
         f"({busy / fwd_ms:.1%} of the {fwd_ms:.3f} ms by CUDA events), "
         f"{sum(e.count for e in kernels) // n} kernel launches a forward; K1 {k1:.4f} ms "
         f"({k1 / busy:.1%} of busy); top kernels by device time a forward: "
@@ -1736,6 +1755,205 @@ def phase20_gloo_pair(dev, tmp, root, card):
         f"{one_peak / 2**30:.3f} GiB | {card}")
 
 
+# phase 21: every model variant of the JAX package beyond dtu_default's
+# (tests/_torch_parity.VARIANTS), with seeded random weights at dtu_default's
+# widths: (a) serving at DTU-mid, (b) the card against the CPU at
+# VARIANT_H x VARIANT_W, (c) one train step at DTU-mid
+VARIANT_H, VARIANT_W, VARIANT_VIEWS = 128, 192, 3
+VARIANT_REQUESTS = 2
+# the training entry point by its flags, three variants at once
+VARIANT_TRAIN_FLAGS = ["--reg_mode", "reg3d", "--pos_enc", "2", "--ASFF"]
+
+
+def _variant_serve(name, model, dev):
+    """(a) infer_views answers VARIANT_REQUESTS requests at DTU-mid with
+    every count at 0 just before; returns the counts."""
+    requests = []
+    for seed in range(VARIANT_REQUESTS):
+        s = synthetic_sample(210 + seed, nviews=NVIEWS, h=H, w=W)
+        requests.append({"imgs": s["imgs"][0], "depth_values": s["depth_values"][0],
+                         "proj_matrices": {k: v[0] for k, v in s["proj_matrices"].items()}})
+    _reset_counts()
+    served = list(infer_views(model, requests, eval_batch=1))
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if len(served) != VARIANT_REQUESTS or counts != dict(
+            K1=4 * VARIANT_REQUESTS, K2=0, K3=0, K4=0, K5=0):
+        raise AssertionError(f"{name}: {len(served)} requests served, launches {counts}")
+    for req, (_, res) in zip(requests, served):
+        dmin, dmax = req["depth_values"][0], req["depth_values"][-1]
+        d1 = res["stage1_depth"]
+        if not np.isfinite(res["depth"]).all() or res["depth"].shape != (1, H, W):
+            raise AssertionError(f"{name}: served depth {res['depth'].shape}, not finite")
+        if d1.min() < dmin * (1 - 1e-6) or d1.max() > dmax * (1 + 1e-6):
+            raise AssertionError(f"{name}: stage-1 depth [{d1.min()}, {d1.max()}] "
+                                 f"outside [{dmin}, {dmax}]")
+    return counts, [r["seconds"] for _, r in served]
+
+
+def _variant_card_vs_cpu(name, model_cpu, dev):
+    """(b) the same model at VARIANT_H x VARIANT_W on the card and on the
+    CPU plain path; these launches count on no path."""
+    sample = synthetic_sample(213, nviews=VARIANT_VIEWS, h=VARIANT_H, w=VARIANT_W)
+    with torch.inference_mode():
+        got = to_numpy_tree(copy.deepcopy(model_cpu).to(dev)(*model_inputs(sample, dev)))
+        want = to_numpy_tree(model_cpu(*model_inputs(sample, "cpu")))
+    if name == "bf16":
+        assert_bf16_close(want, got)
+    else:
+        assert_stage_close(want, got)
+    return float(np.abs(got["stage1"]["attn_weight"] - want["stage1"]["attn_weight"]).max())
+
+
+def _variant_step(name, overrides, batch, dev):
+    """(c) one train step of dtu_default(**overrides) (mono on) at DTU-mid,
+    batch 2, --ot_backend pallas, through dist/train_step, with every count
+    at 0 just before; returns (loss, counts)."""
+    from mvster_tpu_torch.models.losses import mvs4net_loss
+
+    model = MVS4Net(MVS4NetConfig.dtu_default(**overrides))
+    model.load_state_dict(init_state_dict(model, seed=21), strict=True)
+    model.to(dev)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), mvs4net_loss,
+                           dict(LOSS_KW, ot_backend="pallas"))
+    _reset_counts()
+    scalars, _ = step(batch)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    loss = float(scalars["loss"])
+    graded = {k for k, p in model.named_parameters() if p.grad is not None and p.grad.any()}
+    moved = {k for k, p in model.named_parameters() if not torch.equal(p.detach(), before[k])}
+    per_step = 4 * (NVIEWS - 1)
+    if counts != dict(K1=0, K2=per_step, K3=per_step, K4=4, K5=4):
+        raise AssertionError(f"{name}: train-step launches {counts}")
+    if not np.isfinite(loss) or not graded or moved != graded:
+        raise AssertionError(f"{name}: loss {loss}, {len(graded)} tensors with a gradient, "
+                             f"{len(moved)} moved")
+    return loss, counts, len(moved)
+
+
+def _bf16_times(dev, batch, card):
+    """The bf16 and float32 forward (DTU-mid, 5 views, CUDA events over 20
+    iterations) and train step (batch 2, 5 steps after 2 of warm-up), in
+    turns f32, bf16, bf16, f32, with each one's peak memory."""
+    from mvster_tpu_torch.models.losses import mvs4net_loss
+
+    sample = synthetic_sample(0, nviews=NVIEWS, h=H, w=W)
+    inputs = model_inputs(sample, dev)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        fwd = build_model(seed=0, compute_dtype=dtype).to(dev)
+        model = MVS4Net(MVS4NetConfig.dtu_default(compute_dtype=dtype))
+        model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+        model.to(dev)
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                               mvs4net_loss, dict(LOSS_KW, ot_backend="pallas"))
+        runs[dtype] = dict(model=fwd, fwd=lambda fwd=fwd: fwd(*inputs),
+                           step=lambda step=step: step(batch),
+                           fwd_ms=[], step_ms=[], fwd_mb=0.0, step_mb=0.0)
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        r = runs[dtype]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            r["fwd_ms"].append(cuda_ms(r["fwd"], iters=20))
+        r["fwd_mb"] = max(r["fwd_mb"], torch.cuda.max_memory_allocated() / 2**20)
+        torch.cuda.reset_peak_memory_stats()
+        r["step_ms"].append(cuda_ms(r["step"], iters=5, warmup=2))
+        r["step_mb"] = max(r["step_mb"], torch.cuda.max_memory_allocated() / 2**20)
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    log(f"[21 bf16 times] forward {H}x{W}, {NVIEWS} views, batch 1 (20 iterations, in "
+        f"turns f32 bf16 bf16 f32): f32 {f32['fwd_ms']} ms, bf16 {bf16['fwd_ms']} ms, "
+        f"peak {f32['fwd_mb']:.1f} / {bf16['fwd_mb']:.1f} MiB; train step batch {BATCH}, "
+        f"--ot_backend pallas (5 steps after 2 of warm-up): f32 {f32['step_ms']} ms, bf16 "
+        f"{bf16['step_ms']} ms, peak {f32['step_mb']:.1f} / {bf16['step_mb']:.1f} MiB | {card}")
+    for dtype, r in runs.items():
+        profile_forward(r["model"], inputs, float(np.mean(r["fwd_ms"])), card,
+                        label=f"21 {dtype} forward")
+    return runs
+
+
+def phase21_variants(dev, tmp, root, ckpt, serve, card):
+    """Every variant through (a) serving, (b) the card against the CPU and
+    (c) one train step; then tools.train.main and tools.test.main by their
+    flags, and the bf16 times.  Returns the kernels' launches over (a) and
+    (c) of every variant and the two entry points."""
+    from mvster_tpu_torch.tools import train
+
+    t0 = time.perf_counter()
+    batch = dtu_batch(root, dev)
+    total = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    for name, overrides in VARIANTS.items():
+        tv = time.perf_counter()
+        model_cpu = build_model(seed=21, **overrides)
+        model = copy.deepcopy(model_cpu).to(dev)
+        counts, seconds = _variant_serve(name, model, dev)
+        err = _variant_card_vs_cpu(name, model_cpu, dev)
+        loss, step_counts, moved = _variant_step(name, overrides, batch, dev)
+        for k in total:
+            total[k] += counts[k] + step_counts[k]
+        del model, model_cpu
+        torch.cuda.empty_cache()
+        log(f"[21 variant {name}] {overrides}: served {VARIANT_REQUESTS} requests at {H}x{W}, "
+            f"{NVIEWS} views, {counts['K1']} K1 launches, latency ms "
+            + ", ".join(f"{1e3 * x:.2f}" for x in seconds)
+            + f"; card vs CPU at {VARIANT_H}x{VARIANT_W}, {VARIANT_VIEWS} views: "
+            f"{'assert_bf16_close' if name == 'bf16' else 'stage comparator'} holds, stage-1 "
+            f"attention max|d| {err:.2e}; train step batch {BATCH}: loss {loss:.4f}, "
+            f"{moved} tensors moved, launches {step_counts}; {time.perf_counter() - tv:.1f} s")
+
+    # the training entry point by its flags, one epoch of phase 8's tree
+    logdir = os.path.join(tmp, "log_variants")
+    argv = ["--trainpath", root, "--trainlist", f"{root}/train.txt", "--testlist",
+            f"{root}/train.txt", "--logdir", logdir, "--ot_backend", "pallas",
+            *VARIANT_TRAIN_FLAGS, *TRAIN_FLAGS]
+    _reset_counts()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    steps, per_step = result["steps"], 4 * (NVIEWS - 1)
+    if counts["K2"] != per_step * steps or counts["K3"] != per_step * steps \
+            or counts["K5"] != 4 * steps:
+        raise AssertionError(f"tools.train.main {VARIANT_TRAIN_FLAGS}: {steps} steps, {counts}")
+    losses = [r["loss"] for r in _jsonl(os.path.join(logdir, "metrics.jsonl"))
+              if r["mode"] == "train"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"tools.train.main {VARIANT_TRAIN_FLAGS}: losses {losses}")
+    for k in total:
+        total[k] += counts[k]
+    config = MVS4NetConfig.dtu_default(reg_net="reg3d", pos_enc=2, asff=True)
+    trained = MVS4Net(config)
+    trained.load_state_dict(load_reference_ckpt(result["checkpoint"], config), strict=True)
+    log(f"[21 train entry] tools.train.main {' '.join(VARIANT_TRAIN_FLAGS)} --ot_backend "
+        f"pallas: {steps} steps of batch {BATCH} at {H}x{W} + a val pass, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}, launches {counts}; the checkpoint loaded "
+        f"strictly into the variant")
+
+    # the serving entry point by its flags, bf16 on phase 17's scan
+    argv = ["--testpath", serve["root"], "--testlist", serve["scan"], "--loadckpt", ckpt,
+            "--outdir", os.path.join(tmp, "dtu_out_bf16"), *SERVE_FLAGS, "--num_view", "5",
+            "--thres_view", "4", "--conf", "0.5", "--compute_dtype", "bfloat16"]
+    times, k1, total_s = _serve(argv, card, "phase 21")
+    if k1 != 4 * DTU_VIEWS or times["views"] != DTU_VIEWS:
+        raise AssertionError(f"bf16 tools.test.main: {times['views']} views, {k1} K1 launches")
+    from mvster_tpu_torch.data.pfm import read_pfm
+
+    for v in range(DTU_VIEWS):
+        m = read_pfm(os.path.join(tmp, "dtu_out_bf16", serve["scan"], "depth_est",
+                                  f"{v:08d}.pfm"))[0]
+        if m.shape != (SERVE_H, SERVE_W) or not np.isfinite(m).all():
+            raise AssertionError(f"bf16 depth {v}: shape {m.shape}")
+    total["K1"] += k1
+    log(f"[21 test entry] tools.test.main --compute_dtype bfloat16 on phase 17's scan at "
+        f"{SERVE_H}x{SERVE_W}: {k1} K1 launches, {DTU_VIEWS} finite depth maps; forward "
+        f"{times['forward']:.3f} s (phase 17's float32: {serve['times']['forward']:.3f} s), "
+        f"fusion {times['fusion'][serve['scan']]:.3f} s | {card}")
+    _bf16_times(dev, batch, card)
+    log(f"[21 variants] {len(VARIANTS)} variants, both entry points and the bf16 times in "
+        f"{time.perf_counter() - t0:.1f} s; launches over the phase's paths {total}")
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1865,6 +2083,8 @@ def main():
         # 20: data parallel, from phase 8's tree
         ddp_launches = phase20_ddp_entry(dev, tmp, root, card)
         phase20_gloo_pair(dev, tmp, root, card)
+        # 21: the model variants, from phase 8's tree and phase 17's scan
+        variant_launches = phase21_variants(dev, tmp, root, ckpt, serve, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1873,24 +2093,29 @@ def main():
              plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
              library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"],
              launches_by_path={"serve": main_path_launches, "dtu_scan": dtu_launches,
-                               "tanks": tanks_launches, "ddp_train": ddp_launches["K1"]},
+                               "tanks": tanks_launches, "ddp_train": ddp_launches["K1"],
+                               "variants": variant_launches["K1"]},
              max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err}),
         dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"],
-             launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"]}),
+             launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"],
+                              "variants": variant_launches["K2"]}),
         dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"],
-             launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"]}),
+             launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"],
+                              "variants": variant_launches["K3"]}),
         dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
              library_ms=None, back_to_back_ms=ot_sums["k4"],
-             launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"]}),
+             launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"],
+                              "variants": variant_launches["K4"]}),
         dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
              library_ms=None, back_to_back_ms=ot_sums["k5"],
-             launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"]}),
+             launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"],
+                              "variants": variant_launches["K5"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@ Mirrors the JAX package's layout so each module has a named counterpart:
   * config.py  MVS4NetConfig (same fields and defaults as the JAX dataclass)
   * core/      geometry, bilinear sampling, depth-hypothesis samplers
   * kernels/   the cost volume: plain PyTorch and the hand-written CUDA kernel
-  * nn/        FPN4, Reg2d and their conv blocks (nn.Modules, NCHW inside)
+  * nn/        the pyramids (FPN4, ConvNeXt, ASFF, DCN), the regularisers
+               (Reg2d and its attention blocks, Reg3d), the depth
+               encodings and the mono decoder (nn.Modules, NCHW inside)
   * models/    the MVS4Net eval cascade
   * tools/     weight loading and the inference tool
 

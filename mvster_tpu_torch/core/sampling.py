@@ -80,10 +80,19 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     return out.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
 
 
-def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """(..., H, W, C) -> (..., 2H, 2W, C) by pixel replication, as
-    F.interpolate(scale_factor=2, mode="nearest") does."""
-    return x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(..., H, W, C) -> (..., fH, fW, C) by pixel replication, as
+    F.interpolate(scale_factor=factor, mode="nearest") does."""
+    return x.repeat_interleave(factor, dim=-3).repeat_interleave(factor, dim=-2)
+
+
+def max_pool2d(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """(..., H, W, C) max pool without padding, as F.max_pool2d(padding=0)."""
+    h, w, c = x.shape[-3:]
+    lead = x.shape[:-3]
+    nchw = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    out = F.max_pool2d(nchw, window, stride)
+    return out.permute(0, 2, 3, 1).reshape(*lead, *out.shape[2:], c)
 
 
 def resize_trilinear_align_corners(

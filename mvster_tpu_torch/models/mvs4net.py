@@ -1,19 +1,26 @@
-"""MVS4Net: the 4-stage coarse-to-fine cascade (counterpart of mvster_tpu.models.mvs4net).
+"""MVS4Net: the coarse-to-fine cascade (counterpart of mvster_tpu.models.mvs4net).
 
 Per stage: depth hypotheses (inverse-range init, or a schedule around the
-previous stage), the multi-view cost volume, Reg2d, a softmax over depth,
-winner-take-all depth (the first maximum wins a tie) and the
-max-probability confidence, upsampled to full resolution.  Views are folded
-into the batch for the FPN, as in the JAX package, so in training its
-BatchNorm statistics are taken over B*V images.
+previous stage), the multi-view cost volume, an optional depth positional
+encoding (pos_enc 1 sine, 2 learned), the regulariser (Reg2d with its
+agg_type, or Reg3d), a softmax over depth, winner-take-all depth (the
+first maximum wins a tie) and the max-probability confidence, upsampled
+to full resolution.  Views are folded into the batch for the backbone
+(arch_mode fpn, convnext or convnext4, optionally with DCN heads), as in
+the JAX package, so in training its BatchNorm statistics are taken over
+B*V images; with asff each stage's features are fused per view.
 
 In eval the cost volume is the fused kernel K1 (one launch per stage); in
 training it is the differentiable route, K2 gathers and K3 gradients per
 source view (kernels/cost_volume.py), and with config.mono the monocular
-decoder runs too.
+decoder runs too.  With compute_dtype "bfloat16" the FPN4 backbone and
+Reg2d run their convolutions in bfloat16 where the JAX package does; the
+features are cast to float32 before the cost volume, so no kernel sees
+bfloat16, and softmax, argmax, geometry and losses stay float32.
 
 Module names follow the reference checkpoint's state-dict grammar
-(`feature.*`, `reg.{s}.*`), so `load_state_dict(strict=True)` takes both
+(`feature.*`, `reg.{s}.*`, `asff.{l}.*`, `pos_enc_func.{s}`), so
+`load_state_dict(strict=True)` takes both
 tools.weights.state_dict_from_jax(...) and a released MVSTER checkpoint.
 """
 
@@ -34,9 +41,10 @@ from mvster_tpu_torch.core.hypothesis import (
 )
 from mvster_tpu_torch.core.sampling import resize_bilinear_align_corners
 from mvster_tpu_torch.kernels.cost_volume import build_cost_volume
-from mvster_tpu_torch.nn.fpn import FPN4
+from mvster_tpu_torch.nn.fpn import ASFF, FPN4, FPN4ConvNeXt, FPN4ConvNeXt4
 from mvster_tpu_torch.nn.mono import MonoDepthDecoder
-from mvster_tpu_torch.nn.reg import Reg2d
+from mvster_tpu_torch.nn.posenc import pos_enc_learned, pos_enc_sine
+from mvster_tpu_torch.nn.reg import Reg2d, Reg3d
 
 __all__ = ["MVS4Net", "MVS4NetConfig"]
 
@@ -63,13 +71,35 @@ class MVS4Net(nn.Module):
                 f"the PyTorch port does not run {', '.join(missing)} yet"
             )
         self.config = config
-        self.feature = FPN4(config.fpn_base_channel)
+        dtype = {"float32": None, "bfloat16": torch.bfloat16}[config.compute_dtype]
+        b = config.fpn_base_channel
+        if config.arch_mode == "fpn":
+            self.feature = FPN4(b, dcn=config.dcn, dtype=dtype)
+        elif config.arch_mode in ("convnext", "convnext4"):
+            cls = FPN4ConvNeXt if config.arch_mode == "convnext" else FPN4ConvNeXt4
+            self.feature = cls(b, dcn=config.dcn)
+        else:
+            raise ValueError(f"unknown arch_mode {config.arch_mode!r}")
+        if config.asff:
+            self.asff = nn.ModuleList(ASFF(level) for level in range(config.num_stage))
         in_channels = (config.group_cor_dim if config.group_cor
                        else self.feature.out_channels)
-        self.reg = nn.ModuleList(
-            Reg2d(in_channels[s], config.reg_channel)
-            for s in range(config.num_stage)
-        )
+        if config.pos_enc == 2:
+            self.pos_enc_func = nn.ParameterList(
+                torch.zeros(in_channels[s], config.stage_splits[s])
+                for s in range(config.num_stage))
+        elif config.pos_enc not in (0, 1):
+            raise ValueError(f"unknown pos_enc {config.pos_enc}")
+        if config.reg_net == "reg2d":
+            self.reg = nn.ModuleList(
+                Reg2d(in_channels[s], config.reg_channel, config.agg_type, dtype)
+                for s in range(config.num_stage))
+        elif config.reg_net == "reg3d":
+            self.reg = nn.ModuleList(
+                Reg3d(in_channels[s], config.reg_channel, config.reg3d_down_size[s])
+                for s in range(config.num_stage))
+        else:
+            raise ValueError(f"unknown reg_net {config.reg_net!r}")
         if config.mono:
             self.mono_depth_decoder = MonoDepthDecoder(self.feature.out_channels)
 
@@ -93,7 +123,13 @@ class MVS4Net(nn.Module):
         prev: dict[str, Any] = {}
         for stage_idx in range(cfg.num_stage):
             stage_key = f"stage{stage_idx + 1}"
-            feat_stage = features[stage_key]
+            if cfg.asff:  # per view, as the JAX package calls it
+                levels = [features[f"stage{i}"] for i in range(1, 5)]
+                feat_stage = torch.stack([
+                    self.asff[stage_idx](*(f[:, view] for f in levels))
+                    for view in range(v)], dim=1)
+            else:
+                feat_stage = features[stage_key]
             hs, ws = feat_stage.shape[2], feat_stage.shape[3]
             ndepth = cfg.stage_splits[stage_idx]
             if stage_idx == 0:
@@ -125,6 +161,8 @@ class MVS4Net(nn.Module):
 
     def _stage(self, feat_stage, projs, depth_hypo, stage_idx):
         cfg = self.config
+        # the kernels take float32: bfloat16 features are cast up, exactly
+        feat_stage = feat_stage.to(depth_hypo.dtype)
         ref_feat = feat_stage[:, 0].contiguous()
         src_feats = feat_stage[:, 1:].transpose(0, 1).contiguous()  # (V-1, B, ...)
         composed = compose_projection(projs)  # (B, V, 4, 4)
@@ -137,6 +175,10 @@ class MVS4Net(nn.Module):
             attn_temp=cfg.attn_temp, attn_fuse_d=cfg.attn_fuse_d,
             impl="warp" if self.training else "fused", with_fallbacks=True,
         )  # (B, D, H, W, G|C)
+        if cfg.pos_enc == 1:
+            cor = pos_enc_sine(cor, depth_hypo)
+        elif cfg.pos_enc == 2:
+            cor = pos_enc_learned(cor, self.pos_enc_func[stage_idx])
         logits = self.reg[stage_idx](cor.permute(0, 4, 1, 2, 3).contiguous())
         attn_weight = torch.softmax(logits, dim=1)  # (B, D, H, W)
 

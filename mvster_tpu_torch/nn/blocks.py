@@ -3,8 +3,15 @@
 NCHW / NCDHW layouts, as cuDNN wants them.  Module and parameter names
 follow the reference checkpoint's state-dict grammar
 (tools/convert.py): `conv` / `bn` inside the blocks, `0` / `1` for the
-transposed conv and its norm.  The convolutions have no bias, since a norm
-follows each one.
+transposed conv and its norm, `linear_agg.{0|2}`, `pixel_conv` and
+`spatial_conv` in the attention blocks.  The convolutions have no bias,
+since a norm follows each one.
+
+Compute dtype: Conv2d, Conv3d and ConvTranspose3d take `dtype`; given
+one (torch.bfloat16), they cast their input and weight to it and return
+it, as flax's `nn.Conv(dtype=...)` does, while the parameters stay
+float32.  The norms compute in their parameters' dtype (float32), whatever
+the input's, as the JAX package's norms do.
 
 BatchNorm (eps 1e-5, momentum 0.1 = flax's 0.9) follows flax in training:
 it normalises with the batch's mean and biased variance, as torch does, and
@@ -13,7 +20,9 @@ own BatchNorm would take the unbiased one.  Under a process group of more
 than one rank the moments are those of the global batch, as in the JAX
 package's data-parallel step: one all_reduce of each channel's sum, sum
 of squares and count, the variance as flax's E[x^2] - E[x]^2, and the
-gradient through the sums (dist/reduce.AllSum).
+gradient through the sums (dist/reduce.AllSum).  The same arithmetic runs
+where a channel holds one value (Reg3d's deepest level at small sizes):
+flax's mean x and variance 0, where F.batch_norm refuses.
 """
 
 from __future__ import annotations
@@ -32,11 +41,12 @@ class _FlaxStats:
     """Train-mode BatchNorm with flax's running-statistics update."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        if world_size() > 1:
-            return self._global_batch_forward(x)
+        if world_size() > 1 or x.numel() == x.shape[1]:
+            return self._moments_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], unbiased=False)
@@ -46,10 +56,14 @@ class _FlaxStats:
             self.num_batches_tracked.add_(1)
         return y
 
-    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _moments_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's arithmetic from each channel's sums, over the global
+        batch under a process group of more than one rank."""
         dims = [0, *range(2, x.dim())]
         count = x.new_full((1,), x.numel() // x.shape[1])
-        sums = AllSum.apply(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        sums = torch.cat([x.sum(dims), (x * x).sum(dims), count])
+        if world_size() > 1:
+            sums = AllSum.apply(sums)
         c = x.shape[1]
         mean = sums[:c] / sums[-1]
         var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
@@ -72,14 +86,47 @@ class BatchNorm3d(_FlaxStats, nn.BatchNorm3d):
     pass
 
 
+class _ComputeDtype:
+    """A conv that runs in `dtype` when given one (see the module docstring)."""
+
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def _cast(self, x: torch.Tensor):
+        dt = self.compute_dtype
+        if dt is None:
+            return x, self.weight, self.bias
+        bias = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), self.weight.to(dt), bias
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
+
+
+class Conv3d(_ComputeDtype, nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
+
+
+class ConvTranspose3d(_ComputeDtype, nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self._cast(x)
+        return F.conv_transpose3d(x, w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
 class ConvBlock2d(nn.Module):
     """Conv2d (no bias) -> BatchNorm2d -> optional ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1, relu: bool = True):
+                 stride: int = 1, padding: int = 1, relu: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding, bias=False)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                           padding, bias=False, dtype=dtype)
         self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
         self.relu = relu
 
@@ -94,25 +141,105 @@ class ConvBnReLU3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
-                 pad: int | Sequence[int] = 1):
+                 pad: int | Sequence[int] = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, stride,
-                              pad, bias=False)
+        self.conv = Conv3d(in_channels, out_channels, kernel_size, stride,
+                           pad, bias=False, dtype=dtype)
         self.bn = BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.conv(x)))
 
 
-class ConvTransposeBnReLU3d(nn.Sequential):
-    """The reg2d upsampling block: a (1, 3, 3) transposed conv with stride
-    (1, 2, 2) that doubles H and W, then BatchNorm3d and ReLU."""
+class _AttentionBlock(ConvBnReLU3D):
+    """Conv3d, a sigmoid gate multiplied into its output, the residual
+    `+ input`, then BatchNorm3d and ReLU (mvster_tpu.nn.blocks.ConvBnReLU3D_*).
+    The input and output channels are equal; the blocks get no compute
+    dtype, as in the JAX package.  Subclasses define `gate(y)`."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return torch.relu(self.bn(y * self.gate(y) + x))
+
+
+class _ChannelAttention(_AttentionBlock):
+    def __init__(self, in_channels: int, out_channels: int, **kwargs):
+        super().__init__(in_channels, out_channels, **kwargs)
+        self.linear_agg = nn.Sequential(
+            nn.Linear(out_channels, out_channels // 2), nn.ReLU(),
+            nn.Linear(out_channels // 2, out_channels))
+
+
+class ConvBnReLU3D_CAM(_ChannelAttention):
+    """Channel gates from the mean and max over (D, H, W), through one MLP."""
+
+    def gate(self, y):
+        dims = (2, 3, 4)
+        a = self.linear_agg(y.mean(dims)) + self.linear_agg(y.amax(dims))
+        return torch.sigmoid(a)[:, :, None, None, None]
+
+
+class ConvBnReLU3D_DCAM(_ChannelAttention):
+    """Channel gates per depth plane, from the mean and max over (H, W)."""
+
+    def gate(self, y):
+        dims = (3, 4)
+        a = (self.linear_agg(y.mean(dims).transpose(1, 2))
+             + self.linear_agg(y.amax(dims).transpose(1, 2)))  # (B, D, C)
+        return torch.sigmoid(a).transpose(1, 2)[..., None, None]
+
+
+class ConvBnReLU3D_PAM(_AttentionBlock):
+    """Pixel gates: a 7x7 conv (with bias) over [max, mean] taken over (C, D)."""
+
+    def __init__(self, in_channels: int, out_channels: int, **kwargs):
+        super().__init__(in_channels, out_channels, **kwargs)
+        self.pixel_conv = nn.Conv2d(2, 1, 7, padding=3, bias=True)
+
+    def gate(self, y):
+        stats = torch.stack([y.amax((1, 2)), y.mean((1, 2))], dim=1)  # (B, 2, H, W)
+        return torch.sigmoid(self.pixel_conv(stats))[:, :, None]
+
+
+class ConvBnReLU3D_PDAM(_AttentionBlock):
+    """Pixel-depth gates: a 7x7x7 conv (with bias) over [max, mean] over C."""
+
+    def __init__(self, in_channels: int, out_channels: int, **kwargs):
+        super().__init__(in_channels, out_channels, **kwargs)
+        self.spatial_conv = nn.Conv3d(2, 1, 7, padding=3, bias=True)
+
+    def gate(self, y):
+        stats = torch.cat([y.amax(1, keepdim=True), y.mean(1, keepdim=True)], dim=1)
+        return torch.sigmoid(self.spatial_conv(stats))
+
+
+AGG_BLOCKS = {
+    "ConvBnReLU3D": ConvBnReLU3D,
+    "ConvBnReLU3D_CAM": ConvBnReLU3D_CAM,
+    "ConvBnReLU3D_DCAM": ConvBnReLU3D_DCAM,
+    "ConvBnReLU3D_PAM": ConvBnReLU3D_PAM,
+    "ConvBnReLU3D_PDAM": ConvBnReLU3D_PDAM,
+}
+
+
+class ConvTransposeBnReLU3d(nn.Sequential):
+    """The U-Nets' upsampling block: a transposed conv without bias that
+    doubles each axis of stride 2 (torch's padding 1, output_padding 1: the
+    JAX package's input-dilated form with padding (1, 2)), then
+    BatchNorm3d and ReLU.  Reg2d takes the (1, 3, 3) kernel with stride
+    (1, 2, 2), Reg3d the (3, 3, 3) one with stride (2, 2, 2)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Sequence[int] = (1, 3, 3),
+                 stride: Sequence[int] = (1, 2, 2),
+                 dtype: torch.dtype | None = None):
         super().__init__(
-            nn.ConvTranspose3d(in_channels, out_channels, kernel_size=(1, 3, 3),
-                               stride=(1, 2, 2), padding=(0, 1, 1),
-                               output_padding=(0, 1, 1), bias=False),
+            ConvTranspose3d(in_channels, out_channels, kernel_size=tuple(kernel_size),
+                            stride=tuple(stride),
+                            padding=tuple((k - 1) // 2 for k in kernel_size),
+                            output_padding=tuple(s - 1 for s in stride),
+                            bias=False, dtype=dtype),
             BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
             nn.ReLU(),
         )

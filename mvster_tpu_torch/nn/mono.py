@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from mvster_tpu_torch.core.sampling import upsample_nearest_2x
+from mvster_tpu_torch.core.sampling import upsample_nearest
 from mvster_tpu_torch.nn.blocks import ConvBlock2d
 
 _OUT_CHANNELS = (32, 16, 8)
@@ -45,7 +45,7 @@ class MonoDepthDecoder(nn.Module):
         for i in range(3):
             small = mono_feats[f"stage{i + 1}"].permute(0, 3, 1, 2)
             small = self.convblocks[i](small).permute(0, 2, 3, 1)
-            small = upsample_nearest_2x(small)
+            small = upsample_nearest(small, 2)
             large = mono_feats[f"stage{i + 2}"]
             feat = torch.cat([small, large], dim=-1).permute(0, 3, 1, 2)
             disp = torch.sigmoid(self.conv3x3[i](feat))[:, 0]  # (B, H, W)

@@ -7,8 +7,14 @@ pre-flipped transposed-conv kernel -> IODHW, dense (in, out) -> (out, in),
 and routes each flax path onto the reference key grammar:
 
   feature.conv{0..3}.{i}.conv.weight|bn.*      encoder blocks
+  feature.conv0_{0|1}.conv.weight|bn.*         ConvNeXt stems
+  feature.conv{1..3}.<layer>.*|gamma           ConvNeXt blocks (dwconv,
+                                               sconv, norm, pwconv1|2)
   feature.inner{1..3}.weight|bias              lateral 1x1 convs
   feature.out{1..4}.weight                     output heads
+  feature.dcn{1..4}.0.* / .2.weight            DCN norm / tap kernel
+  feature.dcn{1..4}.2.p_conv|m_conv.*          DCN offset and modulation
+                                               convs (the port's names)
   reg.{s}.conv{n}.conv.weight|bn.*             U-Net conv blocks
   reg.{s}.conv{n}.linear_agg.{0|2}.*           CAM/DCAM attention MLPs
   reg.{s}.conv{n}.pixel_conv|spatial_conv.*    PAM/PDAM gates
@@ -17,6 +23,7 @@ and routes each flax path onto the reference key grammar:
   mono_depth_decoder.convblocks.{i}.*          mono decoder conv blocks
   mono_depth_decoder.conv3x3.{i}.*             mono disparity heads
   asff.{l}.<name>.conv.weight|bn.* / weight_levels
+  pos_enc_func.{s}                             learned depth embedding (C, D)
 
 Works on any tree of that shape: flax variables, or gradients of the
 "params" collection (tests export the JAX package's gradients through it).
@@ -44,6 +51,11 @@ def _inv_deconv3d(w):  # flipped (kd, kh, kw, I, O) -> (I, O, kd, kh, kw)
 
 def _linear(w):  # (I, O) -> (O, I)
     return np.transpose(w, (1, 0))
+
+
+def _inv_taps(w):  # DCN (n, C, O), n = ki * k + kj -> (O, C, k, k)
+    k = int(round(w.shape[0] ** 0.5))
+    return np.transpose(w, (2, 1, 0)).reshape(w.shape[2], w.shape[1], k, k).copy()
 
 
 _INV_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -78,6 +90,9 @@ def export_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
         out[f"{tkey_prefix}.{_INV_BN[leaf]}"] = value
         bn_seen.add(tkey_prefix)
 
+    # the ConvNeXt pyramids name their blocks conv1..conv3 and their stems
+    # conv0_0 / conv0_1, where FPN4's encoder blocks are conv{n}_{i}
+    convnext = "conv1" in variables.get("params", {}).get("feature", {})
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):
             head = path[0]
@@ -85,7 +100,8 @@ def export_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
                 name = path[1]
                 m = re.fullmatch(r"conv(\d)_(\d)", name)
                 if m:
-                    tprefix = f"feature.conv{m.group(1)}.{m.group(2)}"
+                    tprefix = (f"feature.{name}" if convnext
+                               else f"feature.conv{m.group(1)}.{m.group(2)}")
                     if path[2] == "conv":
                         leaf, val = _leaf(path[3], value, _inv_conv2d)
                         out[f"{tprefix}.conv.{leaf}"] = val
@@ -95,6 +111,26 @@ def export_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
                 if re.fullmatch(r"(inner|out)\d", name):
                     leaf, val = _leaf(path[2], value, _inv_conv2d)
                     out[f"feature.{name}.{leaf}"] = val
+                    continue
+                if re.fullmatch(r"conv\d", name):  # a ConvNeXt block
+                    layer = path[2]
+                    if layer == "gamma":
+                        out[f"feature.{name}.gamma"] = value
+                    elif layer == "norm":  # LayerNorm: scale, bias
+                        out[f"feature.{name}.norm.{_INV_BN[path[3]]}"] = value
+                    else:  # dwconv, sconv, pwconv1, pwconv2
+                        inv = _linear if layer.startswith("pwconv") else _inv_conv2d
+                        leaf, val = _leaf(path[3], value, inv)
+                        out[f"feature.{name}.{layer}.{leaf}"] = val
+                    continue
+                if re.fullmatch(r"dcn\d", name):
+                    if path[2] == "norm":
+                        put_norm(f"feature.{name}.0", path[3], value)
+                    elif path[3] == "kernel" and len(path) == 4:  # the tap kernel
+                        out[f"feature.{name}.2.weight"] = _inv_taps(value)
+                    else:  # p_conv, m_conv
+                        leaf, val = _leaf(path[4], value, _inv_conv2d)
+                        out[f"feature.{name}.2.{path[3]}.{leaf}"] = val
                     continue
                 raise KeyError(f"unhandled feature path {path}")
             if head.startswith("reg_"):
@@ -149,6 +185,10 @@ def export_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
                     out[f"asff.{level}.{name}.conv.{leaf}"] = val
                 else:
                     put_norm(f"asff.{level}.{name}.{path[2]}", path[3], value)
+                continue
+            m = re.fullmatch(r"pos_enc_(\d)", head)
+            if m and path[1:] == ("depth_embed",):  # (D, C) -> (C, D)
+                out[f"pos_enc_func.{m.group(1)}"] = _linear(value).copy()
                 continue
             raise KeyError(f"unhandled path {path}")
 
