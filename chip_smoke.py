@@ -134,6 +134,28 @@ Phases, one line each, any failure exits non-zero:
      17's scan (28 K1 launches, 7 finite depth maps); and the bf16 and
      float32 forward (20 iterations) and train step (5 steps after 2 of
      warm-up) by CUDA events, in turns, with their peak memory
+ 22. the last modules of the JAX package: (a) image-row sharded inference
+     (dist/spatial.make_spatial_infer_step) as gloo ranks on the one card
+     (`--spatial-rank`, four processes started once): dtu_default(mono=False)
+     with phase 4's weights at 512x640, 5 views, batch 1 in 4 bands, then
+     in 2, then at DTU's raw 1152x1600 in 2; each rank's step with every
+     count at 0 just before (4 K1 launches a rank), its band's shapes, the
+     stage outputs of that same step's forward (caught by a hook on the
+     model) gathered and held against the single-process card forward by
+     the stage comparator, each rank's peak memory and ms a step (gloo
+     stages every exchange through the host: not a scaling number); then
+     K1 on the last band of each run's four stages (row0 != 0, whole
+     sources) against plain at atol/rtol 1e-4 and bitwise against the
+     whole launch's rows.  (b) tools.test.main --vis_ETA --vis_mono on
+     phase 17's scan: 28 K1 and 112 K2 launches, 35 dumps; K2 against
+     plain at that path's four stage shapes (104x144 to 832x1152, batch 1,
+     4 sources) at atol 1e-6; save_depth with the flags on the card
+     against --device cpu at 384x512: vis_mono at rtol/atol 1e-4, vis_ETA
+     within 1e-3 where the runs' hypotheses agree (at least 99% of a
+     stage's pixels, all of stage 1's).  (c) the
+     DTU-mid train step (batch 2, --ot_backend pallas) under no cut and
+     each sg_cuts cut: zero gradients upstream, K3 only under no cut and
+     "mono", the step ms by CUDA events in turns
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -142,7 +164,10 @@ timed queued, with its back-to-back time beside; K1's launches are phase
 5's, with those of phases 5, 17 and 19 under launches_by_path, and its
 max_abs_err the largest of phases 3, 17 and 19, each under
 max_abs_err_by_path; every kernel's launches on phase 20 (a)'s path
-and over phase 21's paths under launches_by_path), and
+and over phase 21's paths under launches_by_path, with phase 22's:
+spatial_serve (K1, over the ranks of its three runs; its band error
+under max_abs_err_by_path), vis_eta (K2; its error beside train's under
+max_abs_err_by_path) and sg_cuts (K2-K5)), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1262,6 +1287,33 @@ def k1_on_cascade(dev, h, w, nsrc, seed):
     return err
 
 
+def k2_on_cascade(dev, h, w, nsrc, seed):
+    """K2 against its plain version at the four stage shapes that an h x w
+    forward with nsrc source views gives it (batch 1, dtu_default's C and
+    D a stage, as STAGES), each source view's coordinates from
+    plane_sweep_coords, at atol K2_ATOL; returns the largest
+    |kernel - plain|.  Called after the path's counts were read, so these
+    launches count on no path."""
+    err = 0.0
+    for si, (_, _, c, d, _) in enumerate(STAGES):
+        hs, ws = h >> (3 - si), w >> (3 - si)
+        inp = stage_inputs(seed + si, hs, ws, c, d, nsrc=nsrc)
+        ref_proj, hypo = t(inp["ref_proj"], dev), t(inp["hypo"], dev)
+        for v in range(nsrc):
+            x, y = plane_sweep_coords(t(inp["src_projs"][v], dev), ref_proj, hypo)
+            src = t(inp["src"][v], dev)
+            got = warp_vjp.warp_gather(src, x, y)
+            want = warp_vjp.warp_plain(src, x, y)
+            torch.cuda.synchronize()
+            if got.shape != (1, d, hs, ws, c) or not torch.isfinite(got).all():
+                raise AssertionError(f"{h}x{w} stage{si + 1} view {v}: K2 {tuple(got.shape)}")
+            torch.testing.assert_close(got, want, rtol=0, atol=K2_ATOL)
+            err = max(err, (got - want).abs().max().item())
+            del x, y, src, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
 def phase17_dtu_scan(dev, tmp, ckpt, card):
     """The DTU serving path end to end through tools.test.main: a synthetic
     7-view scan at DTU's 1200x1600, read at 832x1152, filtered and
@@ -1954,6 +2006,405 @@ def phase21_variants(dev, tmp, root, ckpt, serve, card):
     return total
 
 
+# phase 22: the last modules of the JAX package.  (a) image-row sharded
+# inference (dist/spatial.py), gloo ranks on the one card (NCCL puts no two
+# ranks on one device): spatial 4 at DTU-mid, then spatial 2 at DTU-mid and
+# at DTU's raw resolution; (b) tools.test's --vis_ETA / --vis_mono dumps
+# (K2); (c) the sg_cuts hook on the DTU-mid train step
+SPATIAL_RANK = "--spatial-rank"
+RAW_H, RAW_W = 1152, 1600  # DTU's raw 1200x1600 at multiples of 64
+SPATIAL_RUNS = (("mid_s4", H, W, 4), ("mid_s2", H, W, 2), ("raw_s2", RAW_H, RAW_W, 2))
+SPATIAL_TIMED = 3  # steps timed a rank, after the counted one
+STAGE_KEYS = ("attn_weight", "hypo_depth", "depth", "photometric_confidence")
+# (b): the card against --device cpu at a read size the CPU serves quickly;
+# a pixel's attention volume depends on its own hypotheses and the features
+# alone, so it is compared where the two runs' hypotheses agree (a near-tied
+# argmax moves a later stage's window), and that must be at least VIS_SHARE
+# of the pixels (measured: 100.00% at every stage; a share of a percent
+# left to near-tied argmaxes)
+VIS_MAX_H, VIS_MAX_W = 384, 512
+VIS_TOL, VIS_SHARE = 1e-3, 0.99
+SG_CUTS = ("none", "fpn", "mono", "warp", "cost_volume", "logits")
+# the parameters wholly upstream of a cut under the published loss weights
+# (l1ot_lw (0, 1): the mono decoder's L1 weighs 0, so its path carries zeros)
+SG_UPSTREAM = {"none": (), "fpn": ("feature.",), "mono": ("mono_depth_decoder.",),
+               "warp": (), "cost_volume": ("feature.", "mono_depth_decoder."),
+               "logits": ("reg.",)}
+# ... and the modules that still get a gradient (under "logits" none: the
+# loss reaches the parameters only through the logits and the 0-weighed L1)
+SG_DOWNSTREAM = {"none": ("feature.", "reg."), "fpn": ("reg.",), "mono": ("feature.", "reg."),
+                 "warp": ("feature.", "reg."), "cost_volume": ("reg.",), "logits": ()}
+
+
+def _spatial_run(model, sample, n, dev):
+    """One rank's part of a spatial-n run: the step (make_spatial_infer_step,
+    the entry point) with every count at 0 just before, its forward's stage
+    outputs (caught by a hook on the model) gathered, then SPATIAL_TIMED
+    steps timed with their peak memory."""
+    from mvster_tpu_torch.dist import spatial
+
+    groups = spatial.make_2d_groups(1, n)
+    inputs = model_inputs(sample, "cpu")  # the step moves the band's rows alone
+    step = spatial.make_spatial_infer_step(model, groups)
+    outs = []
+    hook = model.register_forward_hook(lambda mod, args, out: outs.append(out))
+    _reset_counts()
+    try:
+        depth, conf = step(*inputs)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    launches = _launch_counts()
+    (out,) = outs
+    if not (torch.equal(depth, out["stage4"]["depth"])
+            and torch.equal(conf, out["stage4"]["photometric_confidence"])):
+        raise AssertionError(f"spatial {n}: the step's outputs are not its forward's stage 4")
+    gathered = {f"stage{s}": {k: spatial.gather_rows(out[f"stage{s}"][k], groups).cpu().numpy()
+                              for k in STAGE_KEYS} for s in range(1, 5)}
+    del out, outs
+    ms = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(SPATIAL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*inputs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(band=groups.band, launches=launches, depth=depth.cpu().numpy(),
+                conf=conf.cpu().numpy(), gathered=gathered, ms=ms,
+                peak=torch.cuda.max_memory_allocated(dev))
+
+
+def spatial_rank(tmp):
+    """Phase 22 (a), one of four processes on the one card over gloo: the
+    spatial-4 run in a world of 4, then ranks 0 and 1 the spatial-2 runs in
+    a world of their own; results to <tmp>/spatial_rank<r>.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mvster_tpu_torch.dist.mesh import maybe_initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(tmp, "spatial_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    model = build_model(seed=0).to(dev)
+    rank, _ = maybe_initialize_distributed(dev, backend="gloo")
+    out = {}
+    for name, _, _, n in SPATIAL_RUNS:
+        if rank >= n:
+            break
+        if dist.is_initialized() and dist.get_world_size() != n:
+            dist.destroy_process_group()
+            os.environ.update(WORLD_SIZE=str(n), MASTER_PORT=str(inputs["port"]))
+            maybe_initialize_distributed(dev, backend="gloo")
+        out[name] = _spatial_run(model, inputs[name], n, dev)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"spatial_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def k1_on_band(dev, h, w, n, seed):
+    """K1 on the last of n bands of an h x w forward's four stages (dtu_default's
+    C, D and G, 4 sources; row0 = (n - 1) rows, the sources whole: Hs = n
+    rows) against its plain version, both attention modes, at atol/rtol
+    KERNEL_TOL, and against the rows of the whole-image launch, bitwise;
+    returns the largest |kernel - plain|.  Called after the path's counts
+    were read."""
+    err = 0.0
+    for si, (_, _, c, d, g) in enumerate(STAGES):
+        hs, ws = h >> (3 - si), w >> (3 - si)
+        rows = hs // n
+        row0 = (n - 1) * rows
+        inp = stage_inputs(seed + si, hs, ws, c, d, nsrc=NVIEWS - 1)
+        ref, src, ref_proj, src_projs, hypo = (
+            t(inp[k], dev) for k in ("ref", "src", "ref_proj", "src_projs", "hypo"))
+        band = slice(row0, row0 + rows)
+        args = (ref[:, band].contiguous(), src, ref_proj, src_projs,
+                hypo[:, :, band].contiguous(), g, 2.0)
+        for fuse in (True, False):
+            got = warp_correlate.fused_cost_volume(*args, fuse, row0)
+            want = warp_correlate.fused_cost_volume_plain(*args, fuse, row0)
+            whole = warp_correlate.fused_cost_volume(ref, src, ref_proj, src_projs, hypo,
+                                                     g, 2.0, fuse)
+            torch.cuda.synchronize()
+            if got.shape != (1, d, rows, ws, g) or not torch.isfinite(got).all():
+                raise AssertionError(f"{h}x{w} band stage{si + 1}: {tuple(got.shape)}")
+            torch.testing.assert_close(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            if not torch.equal(got, whole[:, :, band]):
+                raise AssertionError(f"{h}x{w} band stage{si + 1}: not the whole launch's rows")
+            err = max(err, (got - want).abs().max().item())
+        del args, got, want, whole, ref, src, hypo
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase22_spatial(dev, tmp, model, mid_out, card):
+    """(a) the spatial step as gloo ranks on the one card against the
+    single-process card forward of the same weights (phase 4's model and,
+    at DTU-mid, its forward), by the stage comparator; K1 on a band against
+    plain.  Returns (K1 launches over the runs, K1's largest error)."""
+    import pickle
+    import socket
+
+    t0 = time.perf_counter()
+    samples = {"mid": synthetic_sample(0, nviews=NVIEWS, h=H, w=W),
+               "raw": synthetic_sample(22, nviews=NVIEWS, h=RAW_H, w=RAW_W)}
+    single = {}
+    for res, sample in samples.items():
+        inputs = model_inputs(sample, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.inference_mode():
+            out = mid_out if res == "mid" else to_numpy_tree(model(*inputs))
+            fwd_ms = cuda_ms(lambda: model(*inputs), iters=SPATIAL_TIMED, warmup=1)
+        single[res] = dict(out=out, ms=fwd_ms, peak=torch.cuda.max_memory_allocated(dev))
+        del inputs
+    torch.cuda.empty_cache()
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    with open(os.path.join(tmp, "spatial_inputs.pkl"), "wb") as f:
+        pickle.dump(dict({name: samples[name[:3]] for name, *_ in SPATIAL_RUNS},
+                         port=ports[1]), f)
+    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(ports[0]))
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen([sys.executable, "-m", "chip_smoke", SPATIAL_RANK, tmp], cwd=ROOT,
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"spatial rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"spatial_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    run_s = time.perf_counter() - t0
+    k1_total, err = 0, 0.0
+    for name, h, w, n in SPATIAL_RUNS:
+        parts = [ranks[r][name] for r in range(n)]
+        ref = single[name[:3]]
+        for r, part in enumerate(parts):
+            if part["band"] != r or part["launches"] != dict(K1=4, K2=0, K3=0, K4=0, K5=0):
+                raise AssertionError(f"{name} rank {r}: band {part['band']}, "
+                                     f"launches {part['launches']}")
+            if part["depth"].shape != (1, h // n, w) or part["conf"].shape != (1, h // n, w):
+                raise AssertionError(f"{name} rank {r}: {part['depth'].shape}")
+            if not (np.isfinite(part["depth"]).all() and np.isfinite(part["conf"]).all()):
+                raise AssertionError(f"{name} rank {r}: non-finite depth or confidence")
+            k1_total += part["launches"]["K1"]
+        got = dict(parts[0]["gathered"], depth=parts[0]["gathered"]["stage4"]["depth"])
+        assert_stage_close(ref["out"], got)
+        worst = max(np.abs(got[f"stage{s}"]["attn_weight"]
+                           - ref["out"][f"stage{s}"]["attn_weight"]).max() for s in range(1, 5))
+        band_err = k1_on_band(dev, h, w, n, seed=220)
+        err = max(err, band_err)
+        log(f"[22a spatial] {name}: dtu_default(mono=False) at {h}x{w}, {NVIEWS} views, batch "
+            f"1 as {n} gloo ranks on the one card (bands of {h // n} rows): "
+            f"{sum(p['launches']['K1'] for p in parts)} K1 launches, matches the "
+            f"single-process card forward by the stage comparator (attention max|d| "
+            f"{worst:.3e}); peak memory a rank "
+            + " / ".join(f"{p['peak'] / 2**20:.1f}" for p in parts)
+            + f" MiB vs one process {ref['peak'] / 2**20:.1f} MiB; ms a step (host clock, "
+            f"{SPATIAL_TIMED} after the counted one; gloo stages every exchange through "
+            f"the host: not a scaling number) "
+            + "; ".join(f"rank {r} " + " / ".join(f"{m:.1f}" for m in p["ms"])
+                        for r, p in enumerate(parts))
+            + f", one process {ref['ms']:.2f} (CUDA events); K1 on the last band (row0 "
+            f"{(n - 1) * (h // n) // 8}..{(n - 1) * (h // n)} by stage, whole sources) vs "
+            f"plain max|d| {band_err:.3e} (atol=rtol={KERNEL_TOL}), bitwise the whole "
+            f"launch's rows | {card}")
+    log(f"[22a spatial] {run_s:.1f} s for the runs (4 processes started once)")
+    return k1_total, err
+
+
+def _vis_dumps(outdir, scan):
+    return {os.path.relpath(os.path.join(d, f), outdir): np.load(os.path.join(d, f))
+            for kind in ("vis_ETA", "vis_mono")
+            for d, _, fs in os.walk(os.path.join(outdir, scan, kind)) for f in fs}
+
+
+def phase22_vis(dev, tmp, ckpt, serve, model, card):
+    """(b) tools.test.main --vis_ETA --vis_mono on phase 17's scan at its
+    flags, every count at 0 just before: 28 K1 and 4 stages x 4 sources x 7
+    views K2 launches; then its save_depth with the flags on the card and
+    with --device cpu at VIS_MAX_H x VIS_MAX_W, the dumps held against each
+    other.  That comparison takes phase 4's seeded weights (`model`, whose
+    depth softmax is decisive, as the stage comparator wants): phase 8's
+    checkpoint, one epoch from the initial weights, leaves near-uniform
+    attention, where float rounding alone picks a later stage's window
+    (measured: stage-4 windows agreed on 8% of the pixels).  Returns the
+    K2 launches."""
+    from mvster_tpu_torch.tools import test as test_tool
+
+    scan = serve["scan"]
+    argv = ["--testpath", serve["root"], "--testlist", scan, "--loadckpt", ckpt,
+            *SERVE_FLAGS, "--num_view", "5", "--thres_view", "4", "--conf", "0.5",
+            "--vis_ETA", "--vis_mono"]
+    outdir = os.path.join(tmp, "vis_out")
+    _reset_counts()
+    t0 = time.perf_counter()
+    times = test_tool.main([*argv, "--outdir", outdir])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    k2 = 4 * 4 * DTU_VIEWS
+    if counts != dict(K1=4 * DTU_VIEWS, K2=k2, K3=0, K4=0, K5=0):
+        raise AssertionError(f"vis: launches {counts}")
+    k2_err = k2_on_cascade(dev, SERVE_H, SERVE_W, nsrc=4, seed=225)
+    dumps = _vis_dumps(outdir, scan)
+    if len(dumps) != 5 * DTU_VIEWS:
+        raise AssertionError(f"vis: {len(dumps)} dumps")
+    for path, a in dumps.items():
+        want = ((1, SERVE_H, SERVE_W, 8) if "vis_mono" in path else None)
+        if (want and a.shape != want) or not np.isfinite(a).all():
+            raise AssertionError(f"{path}: {a.shape}")
+        if "vis_ETA" in path and (a.shape[:2] != (4, 1)
+                                  or np.abs(a.sum(axis=2) - 1).max() > 1e-5):
+            raise AssertionError(f"{path}: {a.shape}, not a softmax over depth")
+
+    seeded = os.path.join(tmp, "phase4_weights.ckpt")
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, seeded)
+    small, hypos = {}, {}
+    infer_views = test_tool.infer_views
+
+    def capture(*a, **k):  # each view's stage hypotheses, as save_depth passes them on
+        for sample, res in infer_views(*a, **k):
+            hypos[device][sample["filename"]] = [res[f"stage{s}_hypo"] for s in range(1, 5)]
+            yield sample, res
+
+    for device in ("cuda", "cpu"):
+        out_small = os.path.join(tmp, f"vis_{device}")
+        args = test_tool.build_test_parser().parse_args(
+            [*argv, "--outdir", out_small, "--max_h", str(VIS_MAX_H), "--max_w",
+             str(VIS_MAX_W), "--device", device, "--loadckpt", seeded])
+        config = test_tool.model_config_from_args(args)
+        m = MVS4Net(config)
+        m.load_state_dict(load_reference_ckpt(args.loadckpt, config), strict=True)
+        hypos[device] = {}
+        t1 = time.perf_counter()
+        test_tool.infer_views = capture
+        try:
+            test_tool.save_depth(args, m.to(args.device).eval(), [scan])
+        finally:
+            test_tool.infer_views = infer_views
+        small[device] = (_vis_dumps(out_small, scan), time.perf_counter() - t1)
+    card_dumps, cpu_dumps = small["cuda"][0], small["cpu"][0]
+    if sorted(card_dumps) != sorted(cpu_dumps) or len(card_dumps) != 5 * DTU_VIEWS:
+        raise AssertionError(f"vis: {sorted(card_dumps)} vs {sorted(cpu_dumps)}")
+    mono_err, eta_err, shares = 0.0, 0.0, {s: [] for s in range(1, 5)}
+    for path, want in cpu_dumps.items():
+        got = card_dumps[path]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{path}: {got.shape} vs {want.shape}")
+        if "vis_mono" in path:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=path)
+            mono_err = max(mono_err, float(np.abs(got - want).max()))
+            continue
+        view = os.path.basename(path)[:8]
+        s = int(path[-10])  # ..._stage{s}_attn.npy
+        name = next(f for f in hypos["cpu"] if os.path.basename(f).startswith(view))
+        agree = np.all(np.isclose(hypos["cuda"][name][s - 1], hypos["cpu"][name][s - 1],
+                                  rtol=1e-5), axis=1)  # (1, h, w)
+        shares[s].append(float(agree.mean()))
+        if agree.mean() < VIS_SHARE or (s == 1 and not agree.all()):
+            raise AssertionError(f"{path}: the runs' hypotheses agree on {agree.mean():.2%}")
+        sel = np.broadcast_to(agree[None, :, None], got.shape)
+        np.testing.assert_allclose(got[sel], want[sel], rtol=0, atol=VIS_TOL, err_msg=path)
+        eta_err = max(eta_err, float(np.abs(got[sel] - want[sel]).max()))
+    log(f"[22b vis] tools.test.main --vis_ETA --vis_mono on phase 17's scan ({SERVE_H}x"
+        f"{SERVE_W}, {DTU_VIEWS} views): {counts['K1']} K1 and {counts['K2']} K2 launches "
+        f"(4 stages x 4 sources a view), {len(dumps)} dumps (vis_mono (1, {SERVE_H}, "
+        f"{SERVE_W}, 8), vis_ETA softmaxes over depth), {total_s:.1f} s in main (forward "
+        f"{times['forward']:.3f} s; writing the views and dumps {times['depth']:.3f} s); "
+        f"K2 vs plain at this path's stages ({SERVE_H // 8}x{SERVE_W // 8} to "
+        f"{SERVE_H}x{SERVE_W}, batch 1, 4 sources) max|d| {k2_err:.3e} (atol {K2_ATOL}); "
+        f"save_depth with phase 4's weights at {VIS_MAX_H}x{VIS_MAX_W} on the card "
+        f"({small['cuda'][1]:.1f} s) vs "
+        f"--device cpu ({small['cpu'][1]:.1f} s): vis_mono max|d| {mono_err:.3e} (rtol=atol "
+        f"1e-4), vis_ETA max|d| {eta_err:.3e} (atol {VIS_TOL}) on the pixels where the "
+        f"runs' hypotheses agree, by stage at least "
+        + ", ".join(f"{min(v):.2%}" for v in shares.values())
+        + f" of them (>= {VIS_SHARE:.0%}, stage 1 all: a near-tied argmax moves a later "
+        f"stage's window) | {card}")
+    return counts["K2"], k2_err
+
+
+def phase22_sg_cuts(dev, root, card):
+    """(c) the DTU-mid train step (batch 2, --ot_backend pallas, Adam, f32,
+    the published loss weights as scripts/probe_train_bwd.py takes them)
+    under no cut and each sg_cuts cut: one counted step each (zero
+    gradients upstream of the cut, gradients downstream, K3 only where a
+    gradient reaches the warped sources), then 3 steps each by CUDA
+    events, in turns.  Returns the launches summed over the counted
+    steps."""
+    from mvster_tpu_torch.models.losses import mvs4net_loss
+
+    batch = dtu_batch(root, dev)
+    steps, counts, losses = {}, {}, {}
+    per_step = 4 * (NVIEWS - 1)
+    for cut in SG_CUTS:
+        model = MVS4Net(MVS4NetConfig.dtu_default(sg_cuts=() if cut == "none" else (cut,)))
+        model.load_state_dict(init_state_dict(model, seed=1), strict=True)
+        model.to(dev)
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                               mvs4net_loss, dict(LOSS_KW, ot_backend="pallas"))
+        _reset_counts()
+        scalars, _ = step(batch)
+        torch.cuda.synchronize()
+        counts[cut] = _launch_counts()
+        losses[cut] = float(scalars["loss"])
+        upstream = [k for k, _ in model.named_parameters() if k.startswith(SG_UPSTREAM[cut])]
+        graded = {k for k, p in model.named_parameters() if p.grad is not None and p.grad.any()}
+        if bool(upstream) != bool(SG_UPSTREAM[cut]) or graded & set(upstream):
+            raise AssertionError(f"{cut}: gradients upstream {sorted(graded & set(upstream))}")
+        if not np.isfinite(losses[cut]) or not all(
+                any(k.startswith(prefix) for k in graded) for prefix in SG_DOWNSTREAM[cut]):
+            raise AssertionError(f"{cut}: loss {losses[cut]}, gradients in "
+                                 f"{sorted({k.split('.')[0] for k in graded})}")
+        k3 = per_step if cut in ("none", "mono") else 0
+        if (counts[cut]["K1"], counts[cut]["K2"], counts[cut]["K3"]) != (0, per_step, k3):
+            raise AssertionError(f"{cut}: launches {counts[cut]}")
+        steps[cut] = lambda step=step: step(batch)
+    ms = {cut: [] for cut in SG_CUTS}
+    for cut in SG_CUTS + SG_CUTS[::-1]:
+        ms[cut].append(cuda_ms(steps[cut], iters=3, warmup=1))
+    log(f"[22c sg_cuts] DTU-mid train step, batch {BATCH}, --ot_backend pallas, Adam, f32, "
+        f"under each cut (one counted step: zero gradients upstream, K3 only where a "
+        f"gradient reaches the warped sources): "
+        + "; ".join(f"{cut} loss {losses[cut]:.4f} K2/K3/K4/K5 {counts[cut]['K2']}/"
+                    f"{counts[cut]['K3']}/{counts[cut]['K4']}/{counts[cut]['K5']}"
+                    for cut in SG_CUTS) + f" | {card}")
+    log(f"[22c times] step ms by cut (3 steps after 1 of warm-up, CUDA events, in turns "
+        f"{' '.join(SG_CUTS)} and back): "
+        + "; ".join(f"{cut} " + " / ".join(f"{m:.2f}" for m in ms[cut]) for cut in SG_CUTS)
+        + f" | {card}")
+    return {k: sum(c[k] for c in counts.values()) for k in ("K2", "K3", "K4", "K5")}
+
+
+def phase22(dev, tmp, root, ckpt, serve, model, mid_out, card):
+    t0 = time.perf_counter()
+    k1, k1_err = phase22_spatial(dev, tmp, model, mid_out, card)
+    k2_vis, k2_err = phase22_vis(dev, tmp, ckpt, serve, model, card)
+    cuts = phase22_sg_cuts(dev, root, card)
+    log(f"[22] {time.perf_counter() - t0:.1f} s")
+    return k1, k1_err, k2_vis, k2_err, cuts
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2005,6 +2456,7 @@ def main():
         launches = warp_correlate.fused_cost_volume.launches
         ref = model_cpu(*model_inputs(sample, "cpu"))
     out, ref = to_numpy_tree(out), to_numpy_tree(ref)
+    mid_out = out  # phase 22 holds the spatial step against it
     depth, conf = out["depth"], out["photometric_confidence"]
     dmin, dmax = sample["depth_values"][0, 0], sample["depth_values"][0, -1]
     # stage 1 spans [dmin, dmax]; each later stage centres its window on the
@@ -2085,37 +2537,48 @@ def main():
         phase20_gloo_pair(dev, tmp, root, card)
         # 21: the model variants, from phase 8's tree and phase 17's scan
         variant_launches = phase21_variants(dev, tmp, root, ckpt, serve, card)
+        # 22: image-row sharding, the vis dumps and the sg_cuts hook
+        spatial_launches, spatial_err, vis_launches, vis_err, cut_launches = phase22(
+            dev, tmp, root, ckpt, serve, model, mid_out, card)
 
     print(card)
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=main_path_launches, max_abs_err=max(*errs, dtu_err, tanks_err),
+        dict(KERNEL, launches=main_path_launches,
+             max_abs_err=max(*errs, dtu_err, tanks_err, spatial_err),
              ms=k1_sums["qk"],
              plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
              library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"],
              launches_by_path={"serve": main_path_launches, "dtu_scan": dtu_launches,
                                "tanks": tanks_launches, "ddp_train": ddp_launches["K1"],
-                               "variants": variant_launches["K1"]},
-             max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err}),
-        dict(K2, launches=k2_launches, max_abs_err=err2, ms=sums["qk2"],
+                               "variants": variant_launches["K1"],
+                               "spatial_serve": spatial_launches},
+             max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err,
+                                  "spatial_serve": spatial_err}),
+        dict(K2, launches=k2_launches, max_abs_err=max(err2, vis_err), ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"],
              launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"],
-                              "variants": variant_launches["K2"]}),
+                              "variants": variant_launches["K2"], "vis_eta": vis_launches,
+                              "sg_cuts": cut_launches["K2"]},
+             max_abs_err_by_path={"train": err2, "vis_eta": vis_err}),
         dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"],
              launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"],
-                              "variants": variant_launches["K3"]}),
+                              "variants": variant_launches["K3"],
+                              "sg_cuts": cut_launches["K3"]}),
         dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
              library_ms=None, back_to_back_ms=ot_sums["k4"],
              launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"],
-                              "variants": variant_launches["K4"]}),
+                              "variants": variant_launches["K4"],
+                              "sg_cuts": cut_launches["K4"]}),
         dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
              library_ms=None, back_to_back_ms=ot_sums["k5"],
              launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"],
-                              "variants": variant_launches["K5"]}),
+                              "variants": variant_launches["K5"],
+                              "sg_cuts": cut_launches["K5"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2127,4 +2590,6 @@ if __name__ == "__main__":
         sys.exit(ddp_entry(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [GLOO_RANK]:
         sys.exit(gloo_rank(sys.argv[2]))
+    if sys.argv[1:2] == [SPATIAL_RANK]:
+        sys.exit(spatial_rank(sys.argv[2]))
     sys.exit(main())

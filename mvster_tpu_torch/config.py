@@ -2,9 +2,8 @@
 
 Same fields, defaults and `dtu_default` as the JAX dataclass, so one
 configuration names the same model in both packages
-(tests/test_torch_model.py asserts the equality).  `unsupported()` lists
-what this port does not run yet (sg_cuts); MVS4Net raises
-NotImplementedError on it.
+(tests/test_torch_model.py asserts the equality).  The port runs every
+configuration the JAX package runs: `unsupported()` lists none.
 """
 
 from __future__ import annotations
@@ -44,7 +43,9 @@ class MVS4NetConfig:
     reg2d_fold: bool = True
     fpn_compose: bool = True
     fpn_compose_mode: str = "hconv"
-    # training-only measurement hook of the JAX package (stop_gradient cuts)
+    # training-only measurement hook of the JAX package: detach() at the
+    # named boundaries "fpn", "warp", "cost_volume", "logits", "mono"
+    # (models/mvs4net.py); the forward is unchanged
     sg_cuts: Sequence[str] = ()
 
     @classmethod
@@ -61,7 +62,7 @@ class MVS4NetConfig:
         return cls(**base)
 
     def unsupported(self) -> list[str]:
-        """The settings of this config that the port cannot run yet: the
-        JAX package's training-only measurement hook sg_cuts."""
-        return [f"sg_cuts={tuple(self.sg_cuts)}"] if self.sg_cuts else []
+        """The settings of this config that the port cannot run: none
+        since the sg_cuts hook was ported."""
+        return []
 

@@ -97,17 +97,20 @@ def plane_sweep_coords(
     src_proj: torch.Tensor,
     ref_proj: torch.Tensor,
     depth_values: torch.Tensor,
+    row0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Source-view pixel coordinates for each reference pixel and hypothesis.
 
     src_proj, ref_proj: (B, 4, 4) composed projections; depth_values
-    (B, D, H, W).  Returns (x, y), each (B, D, H, W), in raw pixel units.
+    (B, D, H, W), the reference rows row0 .. row0 + H - 1 (a band of the
+    image; the whole of it at row0 0).  Returns (x, y), each (B, D, H, W),
+    in raw pixel units.
     """
     _, _, h, w = depth_values.shape
     rot, trans = plane_sweep_rt(src_proj, ref_proj)
     dev, dt = depth_values.device, depth_values.dtype
     xs = torch.arange(w, device=dev, dtype=dt).view(1, 1, w)
-    ys = torch.arange(h, device=dev, dtype=dt).view(1, h, 1)
+    ys = torch.arange(row0, row0 + h, device=dev, dtype=dt).view(1, h, 1)
 
     def ray(i):  # (B, 1, H, W)
         r0, r1, r2 = (rot[:, i, j].view(-1, 1, 1) for j in range(3))

@@ -3,7 +3,8 @@
 Stage 1 spreads D hypotheses over the scene range, uniform in depth or in
 inverse depth; later stages narrow the range around the previous stage's
 prediction and upsample the (B, D, H, W) volume 2x with align-corners
-trilinear interpolation.
+trilinear interpolation (`resize`; dist/spatial.py gives one that maps a
+band's rows to their global coordinates).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def schedule_inverse_range(
     ndepths: int,
     h: int,
     w: int,
+    resize=resize_trilinear_align_corners,
 ) -> torch.Tensor:
     """Inverse-depth hypotheses around the previous stage's (B, H/2, W/2) bounds."""
     itv = torch.arange(ndepths, device=inverse_min_depth.device,
@@ -50,7 +52,7 @@ def schedule_inverse_range(
         inverse_max_depth[:, None, :, :]
         + (inverse_min_depth - inverse_max_depth)[:, None, :, :] * itv[None, :, None, None]
     )  # (B, D, H/2, W/2)
-    inv_hypo = resize_trilinear_align_corners(inv_hypo, ndepths, h, w)
+    inv_hypo = resize(inv_hypo, ndepths, h, w)
     return 1.0 / inv_hypo
 
 
@@ -60,6 +62,7 @@ def schedule_range(
     depth_interval_pixel: torch.Tensor,
     h: int,
     w: int,
+    resize=resize_trilinear_align_corners,
 ) -> torch.Tensor:
     """Uniform-in-depth hypotheses around the previous stage's (B, H/2, W/2) depth."""
     half = ndepths / 2 * depth_interval_pixel[:, None, None]
@@ -68,4 +71,4 @@ def schedule_range(
     interval = (dmax - dmin) / (ndepths - 1)
     steps = torch.arange(ndepths, device=cur_depth.device, dtype=cur_depth.dtype)
     samples = dmin[:, None, :, :] + steps[None, :, None, None] * interval[:, None, :, :]
-    return resize_trilinear_align_corners(samples, ndepths, h, w)
+    return resize(samples, ndepths, h, w)

@@ -7,11 +7,11 @@
 // group_cor=True: for every reference pixel (b, h, w), every source view v
 // and every depth hypothesis d,
 //
-//   (x, y)  = plane-sweep projection of (w, h) at depth hypo[b, d, h, w]
-//             by rot[v, b], trans[v, b]  (z == 0 -> 1e-9)
-//   warped  = bilinear, zero-padded sample of src[v, b] at (x, y): four
-//             taps, each masked by its own validity, summed y0x0, y0x1,
-//             y1x0, y1x1
+//   (x, y)  = plane-sweep projection of (w, row0 + h) at depth
+//             hypo[b, d, h, w] by rot[v, b], trans[v, b]  (z == 0 -> 1e-9)
+//   warped  = bilinear, zero-padded sample of the Hs x Ws map src[v, b] at
+//             (x, y): four taps, each masked by its own validity, summed
+//             y0x0, y0x1, y1x0, y1x1
 //   cor[g]  = mean over the C/G sub-channels of group g of warped * ref
 //
 // then, per view, score_d = sum_g cor[d][g] and the view weight
@@ -19,6 +19,10 @@
 //   otherwise:    w_d = max_d softmax_d(score)   (the same for every d)
 // accumulated online across views, and writes
 //   out[b, d, h, w, g] = sum_v w_d * cor / (1e-8 + sum_v w_d).
+// The reference (H x W) may be a band of rows of the image, from row0 on,
+// while the sources are whole (mvster_tpu_torch/dist/spatial.py); with
+// row0 = 0 and Hs, Ws = H, W this is the whole-image volume, and the
+// arithmetic is the same operation for operation.
 //
 // What bounds it on the H100: the unique device-memory traffic (the
 // reference and source maps, the hypotheses and the output, each once) is
@@ -154,12 +158,13 @@ __device__ __forceinline__ void correlate(const Taps& tp, const float* ref,
 template <int MAXG, int SPLIT>
 __global__ void __launch_bounds__(kMaxThreads)
 warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
-                      const float* __restrict__ src,    // (V, B, H, W, C)
+                      const float* __restrict__ src,    // (V, B, Hs, Ws, C)
                       const float* __restrict__ hypo,   // (B, D, H, W)
                       const float* __restrict__ rot,    // (V, B, 3, 3)
                       const float* __restrict__ trans,  // (V, B, 3)
                       float* __restrict__ out,          // (B, D, H, W, G)
-                      int B, int V, int D, int H, int W, int C, int G, int P,
+                      int B, int V, int D, int H, int W, int Hs, int Ws,
+                      int row0, int C, int G, int P,
                       int attn_fuse_d, float attn_temp, float sqrt_c) {
   extern __shared__ float scores[];  // (2, D, P): a view's weights' logits
   const int d = threadIdx.x / P;
@@ -176,7 +181,8 @@ warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
   const int py = (int)(p / W);
   const int px = (int)(p - (int64_t)py * W);
   const float fx = (float)px;
-  const float fy = (float)py;
+  const float fy = (float)(py + row0);  // the pixel's row in the image
+  const int64_t shw = (int64_t)Hs * Ws;
   const int sub = C / G;
   const float* ref_pix = ref + pix * C;
   const float depth = hypo[((int64_t)b * D + d) * hw + p];
@@ -189,7 +195,7 @@ warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
   for (int v = 0; v < V; ++v) {
     const float* R = rot + ((int64_t)v * B + b) * 9;
     const float* T = trans + ((int64_t)v * B + b) * 3;
-    const float* S = src + ((int64_t)v * B + b) * hw * C;
+    const float* S = src + ((int64_t)v * B + b) * shw * C;
     float ray[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -210,20 +216,20 @@ warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
     const float oy = __fsub_rn(1.f, wy);
     // validity on the floored float: exact for in-range values and safe
     // for coordinates far outside the image, where an int cast overflows
-    const bool vx0 = x0 >= 0.f && x0 <= (float)(W - 1);
-    const bool vx1 = x0 >= -1.f && x0 <= (float)(W - 2);
-    const bool vy0 = y0 >= 0.f && y0 <= (float)(H - 1);
-    const bool vy1 = y0 >= -1.f && y0 <= (float)(H - 2);
-    const int ix0 = (int)fminf(fmaxf(x0, 0.f), (float)(W - 1));
-    const int ix1 = (int)fminf(fmaxf(x0 + 1.f, 0.f), (float)(W - 1));
-    const int iy0 = (int)fminf(fmaxf(y0, 0.f), (float)(H - 1));
-    const int iy1 = (int)fminf(fmaxf(y0 + 1.f, 0.f), (float)(H - 1));
+    const bool vx0 = x0 >= 0.f && x0 <= (float)(Ws - 1);
+    const bool vx1 = x0 >= -1.f && x0 <= (float)(Ws - 2);
+    const bool vy0 = y0 >= 0.f && y0 <= (float)(Hs - 1);
+    const bool vy1 = y0 >= -1.f && y0 <= (float)(Hs - 2);
+    const int ix0 = (int)fminf(fmaxf(x0, 0.f), (float)(Ws - 1));
+    const int ix1 = (int)fminf(fmaxf(x0 + 1.f, 0.f), (float)(Ws - 1));
+    const int iy0 = (int)fminf(fmaxf(y0, 0.f), (float)(Hs - 1));
+    const int iy1 = (int)fminf(fmaxf(y0 + 1.f, 0.f), (float)(Hs - 1));
     // invalid taps read a clamped in-image row with weight zero
     Taps tp;
-    tp.t00 = S + ((int64_t)iy0 * W + ix0) * C;
-    tp.t01 = S + ((int64_t)iy0 * W + ix1) * C;
-    tp.t10 = S + ((int64_t)iy1 * W + ix0) * C;
-    tp.t11 = S + ((int64_t)iy1 * W + ix1) * C;
+    tp.t00 = S + ((int64_t)iy0 * Ws + ix0) * C;
+    tp.t01 = S + ((int64_t)iy0 * Ws + ix1) * C;
+    tp.t10 = S + ((int64_t)iy1 * Ws + ix0) * C;
+    tp.t11 = S + ((int64_t)iy1 * Ws + ix1) * C;
     tp.w00 = (vy0 && vx0) ? __fmul_rn(oy, ox) : 0.f;
     tp.w01 = (vy0 && vx1) ? __fmul_rn(oy, wx) : 0.f;
     tp.w10 = (vy1 && vx0) ? __fmul_rn(wy, ox) : 0.f;
@@ -273,7 +279,8 @@ warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  The first arguments are the
-// tensors and sizes; the launch plan of kernels/warp_correlate.plan_launch
+// tensors and sizes (the reference's H x W from image row row0, the
+// sources' Hs x Ws); the launch plan of kernels/warp_correlate.plan_launch
 // follows: the capacity MAXG, SPLIT, the pixels P a block, its threads
 // (P * D) and its dynamic shared bytes (2 * P * D floats).  Returns the
 // cudaError_t of the launch (0 on success), or cudaErrorInvalidValue for a
@@ -282,7 +289,8 @@ warp_correlate_kernel(const float* __restrict__ ref,    // (B, H, W, C)
 extern "C" int mvster_warp_correlate(const void* ref, const void* src,
                                      const void* hypo, const void* rot,
                                      const void* trans, void* out, int B,
-                                     int V, int D, int H, int W, int C, int G,
+                                     int V, int D, int H, int W, int Hs,
+                                     int Ws, int row0, int C, int G,
                                      int attn_fuse_d, float attn_temp,
                                      float sqrt_c, int maxg, int split,
                                      int pixels, int threads, int smem_bytes,
@@ -294,7 +302,8 @@ extern "C" int mvster_warp_correlate(const void* ref, const void* src,
       split == 0 || (aligned && C % 4 == 0 &&
                      ((split == 1 && sub % 4 == 0) || (split == 2 && sub == 2) ||
                       (split == 4 && sub == 1)));
-  if (B < 1 || V < 1 || D < 1 || H < 1 || W < 1 || G < 1 || G > maxg ||
+  if (B < 1 || V < 1 || D < 1 || H < 1 || W < 1 || Hs < 1 || Ws < 1 ||
+      row0 < 0 || G < 1 || G > maxg ||
       C % G != 0 || !split_ok || pixels < 1 || threads != pixels * D ||
       threads > kMaxThreads || smem_bytes != 2 * threads * (int)sizeof(float)) {
     return (int)cudaErrorInvalidValue;
@@ -311,8 +320,8 @@ extern "C" int mvster_warp_correlate(const void* ref, const void* src,
 #define MVSTER_CASE(MG, SP)                                                    \
   if (maxg == MG && split == SP) {                                             \
     warp_correlate_kernel<MG, SP><<<blocks, threads, smem_bytes, st>>>(        \
-        r, s, h, ro, t, o, B, V, D, H, W, C, G, pixels, attn_fuse_d,           \
-        attn_temp, sqrt_c);                                                    \
+        r, s, h, ro, t, o, B, V, D, H, W, Hs, Ws, row0, C, G, pixels,          \
+        attn_fuse_d, attn_temp, sqrt_c);                                       \
     return (int)cudaGetLastError();                                            \
   }
 #define MVSTER_SPLITS(MG) \

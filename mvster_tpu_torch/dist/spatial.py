@@ -1,0 +1,287 @@
+"""Image-row (H) sharded inference (counterpart of mvster_tpu.dist.spatial).
+
+Plane-sweep inference at resolutions whose activations outgrow one device:
+the ranks of a data row share its images by bands of rows, and each rank
+runs the eval cascade on its band alone.  The JAX package lets GSPMD
+partition H over a second mesh axis; here the exchanges are written out:
+
+  - every convolution taller than one row takes halo rows from the
+    neighbouring bands before it runs (the count follows from its kernel,
+    stride and padding; the image's first and last bands keep zero
+    padding), through hooks on the conv modules while the step runs, so
+    the model's layers run unchanged;
+  - the align-corners resizes (the FPN's top-down 2x, the hypotheses'
+    2x, the confidence's upsampling) take one halo row on each side and
+    map the band's rows to their global coordinates: the model takes
+    this resize as its `resize` callable (RowBand.resize);
+  - the plane sweep reads any source row, so each stage gathers the whole
+    source feature maps from the bands (the model's `gather_sources`
+    callable, RowBand.gather_sources); the reference stays a band, and
+    the cost-volume kernel K1 takes the band's first row (`row0`) and the
+    sources' own size.
+
+Strided convolutions sample rows at the global parity, so a band starts at
+a multiple of the cascade's total stride: the FPN's 8 times Reg2d's 8 at
+stage 1 is 64 rows, and H must be a multiple of 64 * spatial.
+
+Collectives are all_reduce only (sums into zeroed slots, exact since
+x + 0 = x), since gloo takes nothing else on CUDA tensors; the ranks of
+one card therefore run over gloo.  The entry point is the function, under
+torchrun's environment:
+
+  rank, world = dist.mesh.maybe_initialize_distributed(device, backend)
+  groups = make_2d_groups(data, spatial)
+  step = make_spatial_infer_step(model, groups)
+  depth, conf = step(imgs, proj_matrices, depth_values)  # this data row's
+
+Only the row-local configurations run: FPN4, Reg2d with ConvBnReLU3D
+blocks, any positional encoding, float32 or bfloat16.  ASFF, DCN, the
+attention blocks, Reg3d and the ConvNeXt pyramids raise.  The spatial
+train step is not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from mvster_tpu_torch.dist.mesh import rank, world_size
+
+# rows a band must hold a multiple of: FPN4's stride 8 times Reg2d's 8
+BAND_ALIGN = 64
+
+
+class SpatialGroups(NamedTuple):
+    """This rank's place in a (data x spatial) split of the world."""
+
+    data: int
+    spatial: int
+    data_row: int  # rank // spatial: the batch shard it serves
+    band: int      # rank % spatial: its band of image rows
+    spatial_group: Any  # the ranks of its data row (None with spatial 1)
+    data_group: Any     # the ranks of its band index (None with data 1)
+
+
+def make_2d_groups(data: int, spatial: int) -> SpatialGroups:
+    """Split the world into data x spatial ranks, rank r at data row
+    r // spatial and band r % spatial (the counterpart of make_2d_mesh).
+    Every rank creates every group, in one order, as torch.distributed
+    requires."""
+    world = world_size()
+    if data < 1 or spatial < 1 or data * spatial != world:
+        raise ValueError(f"data {data} x spatial {spatial} != world size {world}")
+    r = rank()
+    spatial_group = data_group = None
+    if world > 1:
+        for d in range(data):
+            g = dist.new_group([d * spatial + k for k in range(spatial)])
+            if d == r // spatial:
+                spatial_group = g
+        for k in range(spatial):
+            g = dist.new_group([d * spatial + k for d in range(data)])
+            if k == r % spatial:
+                data_group = g
+    return SpatialGroups(data, spatial, r // spatial, r % spatial,
+                         spatial_group if spatial > 1 else None,
+                         data_group if data > 1 else None)
+
+
+class RowBand:
+    """This rank's band of image rows and the exchanges with the others of
+    its spatial group.  Maps are (..., rows, W): the row axis second to
+    last, unless a `dim` says otherwise."""
+
+    def __init__(self, groups: SpatialGroups):
+        self.n = groups.spatial
+        self.index = groups.band
+        self.group = groups.spatial_group
+
+    def row0(self, rows: int) -> int:
+        """The band's first row in the image, for a band of `rows` rows."""
+        return self.index * rows
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n > 1:
+            dist.all_reduce(x, group=self.group)
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """The whole map from every band's x, rows along `dim`."""
+        rows = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = rows * self.n
+        full = x.new_zeros(shape)
+        full.narrow(dim, self.index * rows, rows).copy_(x)
+        return self._sum(full)
+
+    def gather_sources(self, src: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """The whole source feature maps (V-1, B, H, W, C) from every band's
+        (V-1, B, rows, W, C), and the band's first image row."""
+        return self.gather(src, dim=2), self.row0(src.shape[2])
+
+    def halo(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+        """x with the `top` rows above the band and the `bottom` rows below
+        it (zeros past the image's edges) -> (..., top + rows + bottom, W).
+        The halos travel in x's precision, or float32 for lower ones."""
+        rows = x.shape[-2]
+        if max(top, bottom) > rows:
+            raise ValueError(f"a halo of {max(top, bottom)} rows from bands of {rows}")
+        if top == bottom == 0:
+            return x
+        dt = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
+        slots = x.new_zeros((self.n, *x.shape[:-2], top + bottom, x.shape[-1]), dtype=dt)
+        slots[self.index, ..., :top, :] = x[..., rows - top:, :]
+        slots[self.index, ..., top:, :] = x[..., :bottom, :]
+        self._sum(slots)
+        above = (slots[self.index - 1, ..., :top, :] if self.index > 0
+                 else slots.new_zeros((*x.shape[:-2], top, x.shape[-1])))
+        below = (slots[self.index + 1, ..., top:, :] if self.index < self.n - 1
+                 else slots.new_zeros((*x.shape[:-2], bottom, x.shape[-1])))
+        return torch.cat([above.to(x.dtype), x, below.to(x.dtype)], dim=-2)
+
+    def resize(self, x: torch.Tensor, out_rows: int, out_w: int) -> torch.Tensor:
+        """Align-corners bilinear resize of the band's (..., rows, W) to
+        (..., out_rows, out_w), the image's H growing by out_rows / rows:
+        output row i of the image reads input row i * (Hin - 1) / (Hout - 1),
+        computed in float32 as F.interpolate computes it (and the blend in
+        float32 at least)."""
+        rows, w = x.shape[-2:]
+        h_in, h_out = rows * self.n, out_rows * self.n
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xh = self.halo(x, 1, 1).to(ct)  # image rows row0 - 1 .. row0 + rows
+        base = self.row0(rows) - 1
+        scale = np.float32(h_in - 1) / np.float32(h_out - 1)
+        start = self.row0(out_rows)
+        src = torch.arange(start, start + out_rows, dtype=torch.float32,
+                           device=x.device) * float(scale)
+        i0 = torch.floor(src)
+        lam = (src - i0).to(ct)
+        i0 = i0.long()
+        i1 = torch.clamp(i0 + 1, max=h_in - 1)
+        a = xh.index_select(-2, i0 - base)
+        b = xh.index_select(-2, i1 - base)
+        y = a * (1 - lam)[:, None] + b * lam[:, None]
+        if out_w != w:  # the rows are done: F.interpolate's row weights are (1, 0)
+            lead = y.shape[:-2]
+            y = F.interpolate(y.reshape(-1, 1, out_rows, w), size=(out_rows, out_w),
+                              mode="bilinear", align_corners=True)
+            y = y.reshape(*lead, out_rows, out_w)
+        return y.to(x.dtype)
+
+    @contextlib.contextmanager
+    def halo_convs(self, module: nn.Module):
+        """Within: every conv of `module` taller than one row (its rows the
+        second-to-last axis) takes its halo rows from the neighbouring bands
+        and pads no rows itself; a transposed conv's output is cropped to
+        the band's rows.  The modules are restored on exit."""
+        handles, saved = [], []
+        try:
+            for m in module.modules():
+                if not isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+                    continue
+                k, s, p = m.kernel_size[-2], m.stride[-2], m.padding[-2]
+                if k == 1 and p == 0:
+                    continue
+                if m.dilation[-2] != 1 or m.padding_mode != "zeros":
+                    raise NotImplementedError(f"no halo rule for {m}")
+                saved.append((m, m.padding, getattr(m, "output_padding", None)))
+                if isinstance(m, nn.ConvTranspose3d):
+                    handles += self._transposed_hooks(m, k, s, p)
+                else:  # output row i reads input rows s*i - p .. s*i - p + k - 1
+                    m.padding = (*m.padding[:-2], 0, m.padding[-1])
+                    top, bottom = p, k - s - p
+                    handles.append(m.register_forward_pre_hook(
+                        lambda mod, args, t=top, b=bottom: (self.halo(args[0], t, b),)))
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+            for m, padding, output_padding in saved:
+                m.padding = padding
+                if output_padding is not None:
+                    m.output_padding = output_padding
+
+    def _transposed_hooks(self, m, k, s, p):
+        """Output row o gathers the input rows i with s*i - p + k' = o,
+        k' < k: a band's output rows need (k - 1 - p) // s rows above and
+        (p + s - 1) // s below.  The conv then runs on the padded band with
+        the original padding and no output padding, and its output is cut
+        to the band's s * rows rows."""
+        top, bottom = (k - 1 - p) // s, (p + s - 1) // s
+        if (bottom - 1) * s + k - 2 * p < 0:  # the output would not reach the band's end
+            raise NotImplementedError(f"no halo rule for {m}")
+        m.output_padding = (*m.output_padding[:-2], 0, m.output_padding[-1])
+        rows = {}
+
+        def pre(mod, args):
+            rows["n"] = args[0].shape[-2]
+            return (self.halo(args[0], top, bottom),)
+
+        def post(mod, args, out):
+            return out[..., s * top:s * (top + rows["n"]), :]
+
+        return [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+
+
+def check_row_local(config) -> None:
+    """Raise NotImplementedError, naming them, for the settings of `config`
+    whose ops are not row-local, so that image rows cannot be sharded by
+    halos alone."""
+    found = []
+    if config.arch_mode != "fpn":
+        found.append(f"arch_mode={config.arch_mode!r} (the ConvNeXt pyramids)")
+    if config.asff:
+        found.append("asff (ASFF's cross-level resampling)")
+    if config.dcn:
+        found.append("dcn (DCN's learned offsets)")
+    if config.reg_net != "reg2d":
+        found.append(f"reg_net={config.reg_net!r} (Reg3d's strides over D, H and W)")
+    elif config.agg_type != "ConvBnReLU3D":
+        found.append(f"agg_type={config.agg_type!r} (the attention blocks' pooling "
+                     "and 7x7x7 gates)")
+    if found:
+        raise NotImplementedError("image-row sharding runs the row-local configurations "
+                                  f"only, not {', '.join(found)}")
+
+
+def make_spatial_infer_step(model, groups: SpatialGroups):
+    """The eval forward with each rank of a data row holding one band of
+    image rows.  Returns step(imgs, proj_matrices, depth_values) ->
+    (depth, photometric_confidence), this rank's band, each
+    (B, H / spatial, W); the inputs are its data row's, whole, and only
+    the band's image rows go to the device."""
+    check_row_local(model.config)
+    band = RowBand(groups)
+
+    def step(imgs, proj_matrices, depth_values):
+        h = imgs.shape[2]
+        if h % (BAND_ALIGN * band.n):
+            raise ValueError(f"H = {h} must be a multiple of {BAND_ALIGN} x spatial "
+                             f"{band.n}: a band starts at a multiple of the cascade's "
+                             f"total stride ({BAND_ALIGN} rows)")
+        dev = next(model.parameters()).device
+        rows = h // band.n
+        imgs = imgs[:, :, band.row0(rows):band.row0(rows) + rows].to(dev)
+        proj_matrices = {k: v.to(dev) for k, v in proj_matrices.items()}
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode(), band.halo_convs(model):
+                out = model(imgs, proj_matrices, depth_values.to(dev),
+                            resize=band.resize, gather_sources=band.gather_sources)
+        finally:
+            model.train(was_training)
+        return out["depth"], out["photometric_confidence"]
+
+    return step
+
+
+def gather_rows(band_map: torch.Tensor, groups: SpatialGroups, dim: int = -2) -> torch.Tensor:
+    """The whole map of a data row from each rank's band (rows along `dim`)."""
+    return RowBand(groups).gather(band_map, dim)

@@ -156,7 +156,9 @@ def load_library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mvster_warp_correlate.argtypes = [
             p, p, p, p, p, p,           # ref, src, hypo, rot, trans, out
-            i, i, i, i, i, i, i,        # B, V, D, H, W, C, G
+            i, i, i, i, i,              # B, V, D, H, W
+            i, i, i,                    # Hs, Ws, row0
+            i, i,                       # C, G
             i, f, f,                    # attn_fuse_d, attn_temp, sqrt_c
             i, i, i, i, i,              # maxg, split, pixels, threads, smem bytes
             p,                          # cudaStream_t

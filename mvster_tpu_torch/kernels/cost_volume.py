@@ -16,7 +16,11 @@ Two routes, as the JAX package's impl="pallas" / impl="xla":
                 features; the coordinates are detached, as in the JAX package.
 
 Layouts are channels-last: features (B, H, W, C), hypotheses (B, D, H, W),
-volume (B, D, H, W, G) or (B, D, H, W, C).  The plain formulation keeps its
+volume (B, D, H, W, G) or (B, D, H, W, C).  `row0` places the reference
+rows in the image (a band of rows starting there, dist/spatial.py); the
+source features may then have a size of their own (B, Hs, Ws, C).
+`sg_warp` (MVS4NetConfig.sg_cuts "warp") detaches the warped source
+features on every route.  The plain formulation keeps its
 inputs' dtype: float32 in the model, float64 where a test wants an exact
 reference.
 """
@@ -37,10 +41,12 @@ def warp_src_feature(
     src_proj: torch.Tensor,
     ref_proj: torch.Tensor,
     depth_hypo: torch.Tensor,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Plane-sweep warp one source view (B, H, W, C) into the reference
-    frustum at hypotheses (B, D, Hr, Wr) -> (B, D, Hr, Wr, C)."""
-    x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo)
+    """Plane-sweep warp one source view (B, Hs, Ws, C) into the reference
+    frustum at hypotheses (B, D, Hr, Wr), reference rows from row0 ->
+    (B, D, Hr, Wr, C)."""
+    x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo, row0)
     return grid_sample_zeros(src_feat, x, y)
 
 
@@ -49,6 +55,7 @@ def warp_src_feature_vjp(
     src_proj: torch.Tensor,
     ref_proj: torch.Tensor,
     depth_hypo: torch.Tensor,
+    row0: int = 0,
 ) -> torch.Tensor:
     """warp_src_feature for training: K2 forward, K3 backward on a card.
 
@@ -58,7 +65,7 @@ def warp_src_feature_vjp(
     """
     from mvster_tpu_torch.kernels.warp_vjp import grid_sample_zeros_vjp
 
-    x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo)
+    x, y = plane_sweep_coords(src_proj, ref_proj, depth_hypo, row0)
     return grid_sample_zeros_vjp(src_feat.contiguous(), x.detach(), y.detach())
 
 
@@ -107,6 +114,8 @@ def plain_cost_volume(
     attn_temp: float,
     attn_fuse_d: bool,
     warp=warp_src_feature,
+    sg_warp: bool = False,
+    row0: int = 0,
 ) -> torch.Tensor:
     """The plain formulation: per-view warp, correlate, weight, accumulate;
     `warp` is warp_src_feature or, for training, warp_src_feature_vjp."""
@@ -114,7 +123,9 @@ def plain_cost_volume(
     weight_sum = torch.tensor(1e-8, dtype=ref_feat.dtype, device=ref_feat.device)
     feats_sum = torch.tensor(0.0, dtype=ref_feat.dtype, device=ref_feat.device)
     for v in range(len(src_feats)):
-        warped = warp(src_feats[v], src_projs[v], ref_proj, depth_hypo)
+        warped = warp(src_feats[v], src_projs[v], ref_proj, depth_hypo, row0)
+        if sg_warp:
+            warped = warped.detach()
         cor = correlate(warped, ref_feat, group_cor, group_dim)
         w = view_weight(cor, c, attn_temp, attn_fuse_d)
         weight_sum = weight_sum + w
@@ -140,16 +151,18 @@ def build_cost_volume(
     attn_fuse_d: bool = True,
     impl: str = "fused",
     with_fallbacks: bool = False,
+    sg_warp: bool = False,
+    row0: int = 0,
 ):
     """Fused multi-view cost volume with online cross-view normalisation.
 
-    ref_feat (B, H, W, C); src_feats (V, B, H, W, C) or V tensors
-    (B, H, W, C); ref_proj (B, 4, 4); src_projs (V, B, 4, 4) or V tensors
-    (B, 4, 4); depth_hypo (B, D, H, W).  impl: "fused" (eval, K1) or "warp"
-    (training, differentiable: K2/K3 per source view).  Returns
-    (B, D, H, W, G) with group_cor, else (B, D, H, W, C); with_fallbacks
-    also returns the JAX package's fallback count, which is always 0 here
-    (no path falls back).
+    ref_feat (B, H, W, C), the reference rows row0 .. row0 + H - 1;
+    src_feats (V, B, Hs, Ws, C) or V tensors (B, Hs, Ws, C); ref_proj
+    (B, 4, 4); src_projs (V, B, 4, 4) or V tensors (B, 4, 4); depth_hypo
+    (B, D, H, W).  impl: "fused" (eval, K1) or "warp" (training,
+    differentiable: K2/K3 per source view).  Returns (B, D, H, W, G) with
+    group_cor, else (B, D, H, W, C); with_fallbacks also returns the JAX
+    package's fallback count, which is always 0 here (no path falls back).
     """
     if impl not in ("fused", "warp"):
         raise ValueError(f"impl must be 'fused' or 'warp', got {impl!r}")
@@ -157,7 +170,8 @@ def build_cost_volume(
         out = plain_cost_volume(
             ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
             group_cor=group_cor, group_dim=group_dim, attn_temp=attn_temp,
-            attn_fuse_d=attn_fuse_d, warp=warp_src_feature_vjp,
+            attn_fuse_d=attn_fuse_d, warp=warp_src_feature_vjp, sg_warp=sg_warp,
+            row0=row0,
         )
     elif group_cor:
         from mvster_tpu_torch.kernels.warp_correlate import fused_cost_volume
@@ -166,10 +180,12 @@ def build_cost_volume(
             src_feats = torch.stack(list(src_feats))
         if not isinstance(src_projs, torch.Tensor):
             src_projs = torch.stack(list(src_projs))
+        if sg_warp:  # the warp reads only the source features
+            src_feats = src_feats.detach()
         out = fused_cost_volume(
             ref_feat.contiguous(), src_feats.contiguous(), ref_proj,
             src_projs, depth_hypo.contiguous(), group_dim, attn_temp,
-            attn_fuse_d,
+            attn_fuse_d, row0,
         )
     else:
         # The squared-difference volume has no kernel on any device, as in
@@ -178,6 +194,6 @@ def build_cost_volume(
         out = plain_cost_volume(
             ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
             group_cor=False, group_dim=group_dim, attn_temp=attn_temp,
-            attn_fuse_d=attn_fuse_d,
+            attn_fuse_d=attn_fuse_d, sg_warp=sg_warp, row0=row0,
         )
     return (out, 0) if with_fallbacks else out

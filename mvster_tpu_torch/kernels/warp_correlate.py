@@ -7,6 +7,12 @@ mvster_tpu/kernels/pallas_warp.py::_warp_kernel and the view fusion of
 fused_cost_volume_geom).  A CPU tensor takes the plain PyTorch version,
 `fused_cost_volume_plain`; a CUDA tensor launches the kernel or raises.
 
+The reference may be a band of image rows: `row0` is its first row in the
+image, and the source maps (V, B, Hs, Ws, C) keep a size of their own
+(dist/spatial.py runs each rank's band against whole sources).  With
+row0 = 0 and sources of the reference's size the kernel computes what it
+did before the band offset existed, bit for bit.
+
 `fused_cost_volume.launches` counts kernel launches (`launch` adds one
 per launch), so a run can show that its main path went through the kernel.
 `plan_launch` decides, in Python, how the kernel maps threads to (pixel,
@@ -32,12 +38,12 @@ MAX_G = CAPACITIES[-1]
 
 
 def fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
-                            depth_hypo, group_dim, attn_temp, attn_fuse_d):
+                            depth_hypo, group_dim, attn_temp, attn_fuse_d, row0=0):
     """Plain PyTorch version of the kernel, on any device."""
     return plain_cost_volume(
         ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
         group_cor=True, group_dim=group_dim, attn_temp=attn_temp,
-        attn_fuse_d=attn_fuse_d,
+        attn_fuse_d=attn_fuse_d, row0=row0,
     )
 
 
@@ -95,14 +101,15 @@ def _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim)
             raise ValueError(f"{name} must be contiguous")
     if ref_feat.dim() != 4 or src_feats.dim() != 5 or depth_hypo.dim() != 4:
         raise ValueError(
-            "expected ref_feat (B, H, W, C), src_feats (V, B, H, W, C), "
+            "expected ref_feat (B, H, W, C), src_feats (V, B, Hs, Ws, C), "
             f"depth_hypo (B, D, H, W); got {tuple(ref_feat.shape)}, "
             f"{tuple(src_feats.shape)}, {tuple(depth_hypo.shape)}"
         )
     b, h, w, c = ref_feat.shape
     v = src_feats.shape[0]
     d = depth_hypo.shape[1]
-    if tuple(src_feats.shape[1:]) != (b, h, w, c) or v < 1:
+    if (v < 1 or src_feats.shape[1] != b or src_feats.shape[4] != c
+            or min(src_feats.shape[2:4]) < 1):
         raise ValueError(f"src_feats {tuple(src_feats.shape)} does not match "
                          f"ref_feat {tuple(ref_feat.shape)}")
     if tuple(depth_hypo.shape) != (b, d, h, w):
@@ -126,15 +133,17 @@ def plane_sweep_rts(ref_proj, src_projs):
 
 
 def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
-           attn_fuse_d):
+           attn_fuse_d, row0=0):
     """Check the inputs, launch the kernel on the current stream and return
     its (B, D, H, W, G) output; rot/trans as plane_sweep_rts gives them."""
     from mvster_tpu_torch.kernels._build import load_library, raise_on_error
 
     _check_kernel_inputs(ref_feat, src_feats, depth_hypo, rot, trans, group_dim)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     lib = load_library()
     b, h, w, c = ref_feat.shape
-    v = src_feats.shape[0]
+    v, hs, ws = src_feats.shape[0], src_feats.shape[2], src_feats.shape[3]
     d = depth_hypo.shape[1]
     plan = plan_launch(d, c, group_dim,
                        ref_feat.data_ptr() % 16 == 0 and src_feats.data_ptr() % 16 == 0)
@@ -145,7 +154,7 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
         rc = lib.mvster_warp_correlate(
             ref_feat.data_ptr(), src_feats.data_ptr(), depth_hypo.data_ptr(),
             rot.data_ptr(), trans.data_ptr(), out.data_ptr(),
-            b, v, d, h, w, c, group_dim, int(bool(attn_fuse_d)),
+            b, v, d, h, w, hs, ws, int(row0), c, group_dim, int(bool(attn_fuse_d)),
             float(attn_temp), math.sqrt(c), plan.maxg, plan.split, plan.pixels,
             plan.threads, plan.smem, stream,
         )
@@ -155,17 +164,18 @@ def launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim, attn_temp,
 
 
 def fused_cost_volume(ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
-                      group_dim, attn_temp, attn_fuse_d):
+                      group_dim, attn_temp, attn_fuse_d, row0=0):
     """Attention-fused group-correlation volume (B, D, H, W, G).
 
-    ref_feat (B, H, W, C), src_feats (V, B, H, W, C), ref_proj (B, 4, 4),
-    src_projs (V, B, 4, 4), depth_hypo (B, D, H, W); all float32, and all
-    but the projections contiguous for the kernel.
+    ref_feat (B, H, W, C), the reference rows row0 .. row0 + H - 1;
+    src_feats (V, B, Hs, Ws, C), ref_proj (B, 4, 4), src_projs (V, B, 4, 4),
+    depth_hypo (B, D, H, W); all float32, and all but the projections
+    contiguous for the kernel.
     """
     if ref_feat.device.type == "cpu":
         return fused_cost_volume_plain(ref_feat, src_feats, ref_proj, src_projs,
                                        depth_hypo, group_dim, attn_temp,
-                                       attn_fuse_d)
+                                       attn_fuse_d, row0)
     if ref_feat.device.type != "cuda":
         raise ValueError(f"no kernel for device {ref_feat.device}")
     _check_tensors(ref_feat, ref_proj=ref_proj, src_projs=src_projs)
@@ -175,7 +185,7 @@ def fused_cost_volume(ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
                          f"{tuple(src_projs.shape)} do not match B={b}, V={v}")
     rot, trans = plane_sweep_rts(ref_proj, src_projs)
     return launch(ref_feat, src_feats, depth_hypo, rot, trans, group_dim,
-                  attn_temp, attn_fuse_d)
+                  attn_temp, attn_fuse_d, row0)
 
 
 fused_cost_volume.launches = 0

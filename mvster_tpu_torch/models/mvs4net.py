@@ -13,7 +13,16 @@ B*V images; with asff each stage's features are fused per view.
 In eval the cost volume is the fused kernel K1 (one launch per stage); in
 training it is the differentiable route, K2 gathers and K3 gradients per
 source view (kernels/cost_volume.py), and with config.mono the monocular
-decoder runs too.  With compute_dtype "bfloat16" the FPN4 backbone and
+decoder runs too.
+
+config.sg_cuts, the JAX package's training-only measurement hook, detaches
+at named boundaries, with the forward unchanged: "fpn" the pyramid's
+features, "warp" every warped source feature inside the cost volume (so
+K3 never runs), "cost_volume" the volume, "logits" Reg2d's output and
+"mono" the monocular depths.  `return_debug` adds each stage's features
+and composed projections for tools/test.py's --vis_ETA / --vis_mono dumps.
+`resize` and `gather_sources` run the eval cascade on one band of image
+rows (dist/spatial.py).  With compute_dtype "bfloat16" the FPN4 backbone and
 Reg2d run their convolutions in bfloat16 where the JAX package does; the
 features are cast to float32 before the cost volume, so no kernel sees
 bfloat16, and softmax, argmax, geometry and losses stay float32.
@@ -39,7 +48,10 @@ from mvster_tpu_torch.core.hypothesis import (
     schedule_inverse_range,
     schedule_range,
 )
-from mvster_tpu_torch.core.sampling import resize_bilinear_align_corners
+from mvster_tpu_torch.core.sampling import (
+    resize_bilinear_align_corners,
+    resize_trilinear_align_corners,
+)
 from mvster_tpu_torch.kernels.cost_volume import build_cost_volume
 from mvster_tpu_torch.nn.fpn import ASFF, FPN4, FPN4ConvNeXt, FPN4ConvNeXt4
 from mvster_tpu_torch.nn.mono import MonoDepthDecoder
@@ -57,19 +69,26 @@ class MVS4Net(nn.Module):
         multiples of 64.
       proj_matrices: {"stage1".."stage4": (B, V, 2, 4, 4)}.
       depth_values: (B, K), [:, 0] = dmin and [:, -1] = dmax.
+      return_debug: also return each stage's debug_features (B, V, h, w, C)
+        and debug_proj (B, V, 4, 4), as the JAX model's return_debug.
+      resize: None, or the align-corners bilinear resize
+        `resize(x, out_h, out_w)` of (..., H, W) maps that every upsampling
+        of the cascade then uses (the FPN's 2x, the hypotheses', the
+        confidence's).
+      gather_sources: None, or `gather_sources(src) -> (whole, row0)`:
+        the whole source feature maps (V-1, B, H, W, C) from the given
+        ones, and the image row of the reference's first row.
+      With both, imgs hold a band of image rows and every map of the
+      cascade is the band's (dist/spatial.py gives both callables).
     Returns {"stage{i}": {depth, photometric_confidence, hypo_depth,
     attn_weight, warp_fallbacks[, inverse_min_depth, inverse_max_depth]
-    [, mono_feat][, mono_depth]}} with the final stage's fields also at the
-    top level; mono_depth (stages 2-4) only in training with config.mono.
+    [, mono_feat][, mono_depth][, debug_features, debug_proj]}} with the
+    final stage's fields also at the top level; mono_depth (stages 2-4)
+    only in training with config.mono.
     """
 
     def __init__(self, config: MVS4NetConfig):
         super().__init__()
-        missing = config.unsupported()
-        if missing:
-            raise NotImplementedError(
-                f"the PyTorch port does not run {', '.join(missing)} yet"
-            )
         self.config = config
         dtype = {"float32": None, "bfloat16": torch.bfloat16}[config.compute_dtype]
         b = config.fpn_base_channel
@@ -104,7 +123,8 @@ class MVS4Net(nn.Module):
             self.mono_depth_decoder = MonoDepthDecoder(self.feature.out_channels)
 
     def forward(self, imgs: torch.Tensor, proj_matrices: dict[str, torch.Tensor],
-                depth_values: torch.Tensor) -> dict[str, Any]:
+                depth_values: torch.Tensor, return_debug: bool = False,
+                resize=None, gather_sources=None) -> dict[str, Any]:
         cfg = self.config
         b, v, h, w, _ = imgs.shape
         if h % 64 or w % 64:
@@ -112,12 +132,16 @@ class MVS4Net(nn.Module):
         k = depth_values.shape[1]
         depth_interval = (depth_values[:, -1] - depth_values[:, 0]) / k
 
-        flat = imgs.reshape(b * v, h, w, imgs.shape[-1]).permute(0, 3, 1, 2)
-        feats_flat = self.feature(flat.contiguous())
+        flat = imgs.reshape(b * v, h, w, imgs.shape[-1]).permute(0, 3, 1, 2).contiguous()
+        feats_flat = self.feature(flat) if resize is None else self.feature(flat, resize=resize)
         features = {  # stage -> (B, V, Hs, Ws, C), channels-last
             key: f.permute(0, 2, 3, 1).reshape(b, v, *f.shape[2:], f.shape[1])
             for key, f in feats_flat.items()
         }
+        if "fpn" in cfg.sg_cuts:
+            features = {key: f.detach() for key, f in features.items()}
+        resize_hypo = (resize_trilinear_align_corners if resize is None
+                       else lambda x, d, hs, ws: resize(x, hs, ws))
 
         outputs: dict[str, Any] = {}
         prev: dict[str, Any] = {}
@@ -138,15 +162,19 @@ class MVS4Net(nn.Module):
             elif cfg.inverse_depth:
                 depth_hypo = schedule_inverse_range(
                     prev["inverse_min_depth"].detach(),
-                    prev["inverse_max_depth"].detach(), ndepth, hs, ws,
+                    prev["inverse_max_depth"].detach(), ndepth, hs, ws, resize=resize_hypo,
                 )
             else:
                 depth_hypo = schedule_range(
                     prev["depth"].detach(), ndepth,
                     cfg.depth_interals_ratio[stage_idx] * depth_interval, hs, ws,
+                    resize=resize_hypo,
                 )
             prev = self._stage(feat_stage, proj_matrices[stage_key],
-                               depth_hypo, stage_idx)
+                               depth_hypo, stage_idx, resize, gather_sources)
+            if return_debug:
+                prev["debug_features"] = feat_stage
+                prev["debug_proj"] = compose_projection(proj_matrices[stage_key])
             outputs[stage_key] = prev
         outputs.update(prev)
 
@@ -156,15 +184,21 @@ class MVS4Net(nn.Module):
                 depth_values[:, 0], depth_values[:, 1],
             )
             for key, depth in mono_depths.items():
+                if "mono" in cfg.sg_cuts:
+                    depth = depth.detach()
                 outputs[key]["mono_depth"] = depth
         return outputs
 
-    def _stage(self, feat_stage, projs, depth_hypo, stage_idx):
+    def _stage(self, feat_stage, projs, depth_hypo, stage_idx, resize=None,
+               gather_sources=None):
         cfg = self.config
         # the kernels take float32: bfloat16 features are cast up, exactly
         feat_stage = feat_stage.to(depth_hypo.dtype)
         ref_feat = feat_stage[:, 0].contiguous()
         src_feats = feat_stage[:, 1:].transpose(0, 1).contiguous()  # (V-1, B, ...)
+        row0 = 0
+        if gather_sources is not None:  # the plane sweep reads any source row
+            src_feats, row0 = gather_sources(src_feats)
         composed = compose_projection(projs)  # (B, V, 4, 4)
         ref_proj = composed[:, 0]
         src_projs = composed[:, 1:].transpose(0, 1)
@@ -174,12 +208,17 @@ class MVS4Net(nn.Module):
             group_cor=cfg.group_cor, group_dim=cfg.group_cor_dim[stage_idx],
             attn_temp=cfg.attn_temp, attn_fuse_d=cfg.attn_fuse_d,
             impl="warp" if self.training else "fused", with_fallbacks=True,
+            sg_warp="warp" in cfg.sg_cuts, row0=row0,
         )  # (B, D, H, W, G|C)
+        if "cost_volume" in cfg.sg_cuts:
+            cor = cor.detach()
         if cfg.pos_enc == 1:
             cor = pos_enc_sine(cor, depth_hypo)
         elif cfg.pos_enc == 2:
             cor = pos_enc_learned(cor, self.pos_enc_func[stage_idx])
         logits = self.reg[stage_idx](cor.permute(0, 4, 1, 2, 3).contiguous())
+        if "logits" in cfg.sg_cuts:
+            logits = logits.detach()
         attn_weight = torch.softmax(logits, dim=1)  # (B, D, H, W)
 
         # winner-take-all depth; torch.argmax returns the first maximum
@@ -188,10 +227,12 @@ class MVS4Net(nn.Module):
 
         conf = torch.max(attn_weight, dim=1).values
         up = 2 ** (3 - stage_idx)
-        if up > 1:
+        if up > 1 and resize is None:
             conf = resize_bilinear_align_corners(
                 conf[..., None], conf.shape[1] * up, conf.shape[2] * up
             )[..., 0]
+        elif up > 1:
+            conf = resize(conf, conf.shape[1] * up, conf.shape[2] * up)
 
         ret = {
             "depth": depth,

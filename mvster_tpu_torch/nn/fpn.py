@@ -54,13 +54,17 @@ class _TopDown(nn.Module):
             for i, c in enumerate(self.out_channels, 1):
                 setattr(self, f"dcn{i}", DeformConvBlock(c))
 
-    def _top_down(self, conv0, conv1, conv2, conv3) -> dict[str, torch.Tensor]:
+    def _top_down(self, conv0, conv1, conv2, conv3, resize=None) -> dict[str, torch.Tensor]:
+        """`resize(x, out_h, out_w)`: an align-corners bilinear resize for
+        the 2x upsampling in place of F.interpolate's (dist/spatial.py gives
+        one for a band of image rows)."""
+        up2 = _up2 if resize is None else lambda x: resize(x, 2 * x.shape[-2], 2 * x.shape[-1])
         intra = conv3
         outs = [self.out1(intra)]
         for lateral, inner, out in ((conv2, self.inner1, self.out2),
                                     (conv1, self.inner2, self.out3),
                                     (conv0, self.inner3, self.out4)):
-            intra = _up2(intra) + inner(lateral)
+            intra = up2(intra) + inner(lateral)
             outs.append(out(intra))
         if self.dcn:
             outs = [getattr(self, f"dcn{i}")(o) for i, o in enumerate(outs, 1)]
@@ -90,14 +94,14 @@ class FPN4(_TopDown):
         self.conv3 = encoder(4 * b, 8 * b, (5, 2, 2))
         self._init_top_down(b, dcn, dtype)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, resize=None) -> dict[str, torch.Tensor]:
         if self.dtype is not None:
             x = x.to(self.dtype)
         conv0 = self.conv0(x)
         conv1 = self.conv1(conv0)
         conv2 = self.conv2(conv1)
         conv3 = self.conv3(conv2)
-        return self._top_down(conv0, conv1, conv2, conv3)
+        return self._top_down(conv0, conv1, conv2, conv3, resize)
 
 
 class _ConvNeXtLayers(nn.Module):

@@ -1,12 +1,13 @@
 """Flags of the port's inference and training tools (counterpart of mvster_tpu.tools.cli).
 
 The model flags are the JAX package's (add_model_args), mapped onto the
-port's MVS4NetConfig; the test flags are the JAX inference tool's but for
---vis_ETA and --vis_mono (the attention dumps are not ported); the train
-flags are the JAX training tool's, --batch_size the global batch over the
-data-parallel processes that torchrun launches (tools/train.py).  Both
-tools take --device, default cuda, and raise without a card unless given
---device cpu.
+port's MVS4NetConfig; the test flags are the JAX inference tool's, with
+--vis_ETA and --vis_mono (tools/test.py's dumps); the train flags are the
+JAX training tool's, --batch_size the global batch over the data-parallel
+processes that torchrun launches (tools/train.py), and --mode test trains
+as the JAX tool does.  Every flag and choice of the JAX parsers parses
+here; the one flag the port adds is --device, default cuda: both tools
+raise without a card unless given --device cpu.
 """
 
 from __future__ import annotations
@@ -61,10 +62,17 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--ASFF", action="store_true")
     p.add_argument("--attn_temp", type=float, default=2.0)
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--reg2d_fold", default="auto", choices=["auto", "on", "off"],
+                   help="the JAX package's folded-depth Reg2d formulation; "
+                        "accepted, and the same function here (config.py)")
 
 
 def model_config_from_args(args) -> MVS4NetConfig:
+    fold_kw = {}
+    if args.reg2d_fold != "auto":
+        fold_kw["reg2d_fold"] = args.reg2d_fold == "on"
     return MVS4NetConfig(
+        **fold_kw,
         arch_mode=args.arch_mode,
         reg_net=args.reg_mode,
         fpn_base_channel=args.fpn_base_channel,
@@ -118,6 +126,12 @@ def build_test_parser() -> argparse.ArgumentParser:
                    help="also write each stage's depth as a colour-mapped jpg")
     p.add_argument("--save_freq", type=int, default=20,
                    help="write a camera-frame ply_local cloud every N views")
+    p.add_argument("--vis_ETA", action="store_true",
+                   help="write each stage's per-source-view attention volumes "
+                        "to vis_ETA/*_stage{s}_attn.npy")
+    p.add_argument("--vis_mono", action="store_true",
+                   help="write the last view's stage-4 features to "
+                        "vis_mono/*_feat_stage4.npy")
     p.add_argument("--dtu_gt_dir", default=None,
                    help="DTU SampleSet 'MVS Data' dir; runs the DTU metric when set")
     add_device_arg(p)
@@ -144,8 +158,9 @@ def build_train_parser() -> argparse.ArgumentParser:
                     "fine-tune; one device, or data parallel under torchrun "
                     "(one process a card)",
     )
-    p.add_argument("--mode", default="train", choices=["train", "profile"],
-                   help="profile: a torch.profiler trace of 3 train steps")
+    p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
+                   help="profile: a torch.profiler trace of 3 train steps; "
+                        "train and test train (the JAX tool's choices)")
     p.add_argument("--dataset", default="dtu", choices=["dtu", "dtu_yao4", "blendedmvs"])
     p.add_argument("--trainpath", required=True)
     p.add_argument("--testpath", default=None)

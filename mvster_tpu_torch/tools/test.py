@@ -3,8 +3,12 @@
 Per scan, as the JAX inference tool does it:
   1. the eval forward over every reference view (`infer_views`), writing
      depth_est/*.pfm, confidence/*.pfm, cams/*_cam.txt and images/*.jpg, a
-     camera-frame ply_local/*.ply every --save_freq views and, with
-     --save_jpg, each stage's depth as a colour-mapped jpg;
+     camera-frame ply_local/*.ply every --save_freq views, with
+     --save_jpg each stage's depth as a colour-mapped jpg, with --vis_mono
+     the last view's stage-4 features (vis_mono/*_feat_stage4.npy) and
+     with --vis_ETA each stage's per-source-view attention volumes
+     (vis_ETA/*_stage{s}_attn.npy, utils/debug.attention_maps: K2 on the
+     card);
   2. the cross-view geometric filter and fusion on the device
      (infer/fusion.py), writing mask/*_{photo,geo,final}.png and the fused
      mvsnet{scan:03d}_l3.ply (DTU) or <scan>.ply (Tanks, ETH3D);
@@ -46,7 +50,7 @@ from mvster_tpu_torch.tools.cli import (
 from mvster_tpu_torch.tools.weights import load_reference_ckpt
 
 
-def _forward_chunk(model, chunk, eval_batch, device):
+def _forward_chunk(model, chunk, eval_batch, device, return_debug=False):
     real = len(chunk)
     padded = chunk + [chunk[-1]] * (eval_batch - real)
     imgs = torch.from_numpy(np.stack([s["imgs"] for s in padded])).to(device)
@@ -57,11 +61,16 @@ def _forward_chunk(model, chunk, eval_batch, device):
     dv = torch.from_numpy(np.stack([s["depth_values"] for s in padded])).to(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        out = model(imgs, projs, dv)
+        out = model(imgs, projs, dv, return_debug=return_debug)
         result = {"depth": out["depth"], "confidence": out["photometric_confidence"]}
         for s in range(1, 5):
-            result[f"stage{s}_depth"] = out[f"stage{s}"]["depth"]
-            result[f"stage{s}_conf"] = out[f"stage{s}"]["photometric_confidence"]
+            stage = out[f"stage{s}"]
+            result[f"stage{s}_depth"] = stage["depth"]
+            result[f"stage{s}_conf"] = stage["photometric_confidence"]
+            if return_debug:  # numpy has no bfloat16: the features go as float32
+                result[f"stage{s}_feat"] = stage["debug_features"].float()
+                result[f"stage{s}_proj"] = stage["debug_proj"]
+                result[f"stage{s}_hypo"] = stage["hypo_depth"]
         result = {k: v.cpu().numpy() for k, v in result.items()}  # waits
     seconds = time.perf_counter() - t0
     for i in range(real):
@@ -71,15 +80,17 @@ def _forward_chunk(model, chunk, eval_batch, device):
         yield chunk[i], view
 
 
-def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1
-                ) -> Iterator[tuple[dict, dict[str, Any]]]:
+def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1,
+                return_debug: bool = False) -> Iterator[tuple[dict, dict[str, Any]]]:
     """Run the eval forward over reference views; yield (sample, result).
 
     samples: dicts with imgs (V, H, W, 3), proj_matrices {stage: (V, 2, 4, 4)}
     and depth_values (K,), all of one shape.  result: numpy depth and
-    confidence (1, H, W), stage{s}_depth / stage{s}_conf, and `seconds`,
-    the wall time of the forward that produced the view (with the copy
-    back to the host), shared by the `chunk_views` views of its chunk.
+    confidence (1, H, W), stage{s}_depth / stage{s}_conf (with
+    return_debug also stage{s}_feat (1, V, h, w, C), stage{s}_proj
+    (1, V, 4, 4) and stage{s}_hypo (1, D, h, w)), and `seconds`, the wall
+    time of the forward that produced the view (with the copy back to the
+    host), shared by the `chunk_views` views of its chunk.
     """
     eval_batch = max(1, eval_batch)
     device = next(model.parameters()).device
@@ -87,10 +98,10 @@ def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1
     for sample in samples:
         chunk.append(sample)
         if len(chunk) == eval_batch:
-            yield from _forward_chunk(model, chunk, eval_batch, device)
+            yield from _forward_chunk(model, chunk, eval_batch, device, return_debug)
             chunk = []
     if chunk:
-        yield from _forward_chunk(model, chunk, eval_batch, device)
+        yield from _forward_chunk(model, chunk, eval_batch, device, return_debug)
 
 
 def colormap_jet(depth: np.ndarray) -> np.ndarray:
@@ -128,7 +139,9 @@ def save_depth(args, model: MVS4Net, testlist) -> tuple[float, int]:
             raise ValueError(f"unsupported test dataset {args.dataset}")
 
         samples = (dataset[i] for i in range(len(dataset)))
-        for idx, (sample, out) in enumerate(infer_views(model, samples, args.eval_batch)):
+        views = infer_views(model, samples, args.eval_batch,
+                            return_debug=args.vis_ETA or args.vis_mono)
+        for idx, (sample, out) in enumerate(views):
             total_time += out["seconds"] / out["chunk_views"]
             total_views += 1
             _write_view_outputs(args, sample, out, idx, len(dataset))
@@ -138,8 +151,8 @@ def save_depth(args, model: MVS4Net, testlist) -> tuple[float, int]:
 
 
 def _write_view_outputs(args, sample, out, idx, total):
-    """One reference view's PFMs, cam file, image, ply_local cloud and stage
-    jpgs, in the JAX inference tool's layout."""
+    """One reference view's PFMs, cam file, image, ply_local cloud, stage
+    jpgs and vis dumps, in the JAX inference tool's layout."""
     import cv2
 
     from mvster_tpu_torch.data.common import write_cam_file
@@ -173,6 +186,23 @@ def _write_view_outputs(args, sample, out, idx, total):
         for s in range(1, 5):
             cv2.imwrite(path_for("depth_est", f"stage_{s}.jpg"),
                         colormap_jet(out[f"stage{s}_depth"][0]))
+    if args.vis_mono:  # the last view's stage-4 features (MVS4Net.py:70-75)
+        np.save(path_for("vis_mono", "_feat_stage4.npy"), out["stage4_feat"][:, -1])
+    if args.vis_ETA:  # per-view epipolar attention (mvs4net_utils.py:1044-1046)
+        from mvster_tpu_torch.utils.debug import attention_maps
+
+        device = torch.device(args.device)
+        group_dims = model_config_from_args(args).group_cor_dim
+        for s in range(1, 5):
+            feats = torch.from_numpy(out[f"stage{s}_feat"]).to(device)  # (1, V, h, w, C)
+            projs = torch.from_numpy(out[f"stage{s}_proj"]).to(device)  # (1, V, 4, 4)
+            maps = attention_maps(
+                feats[:, 0], list(feats[:, 1:].unbind(1)), projs[:, 0],
+                list(projs[:, 1:].unbind(1)),
+                torch.from_numpy(out[f"stage{s}_hypo"]).to(device),
+                group_dim=group_dims[s - 1],
+            )
+            np.save(path_for("vis_ETA", f"_stage{s}_attn.npy"), maps.cpu().numpy())
     if idx % 10 == 0:
         print(f"view {idx}/{total} written")
 

@@ -414,20 +414,27 @@ def train_step_pair(l1ot_lw, lr=1e-3, seed=0, *, config=None, batch=None,
         with context:
             make_train_step(exact, torch.optim.SGD(exact.parameters(), lr=0.0), port_loss,
                             loss_kwargs)(f64(batch))
-        return {k: p.grad.numpy().copy() for k, p in exact.named_parameters()}
+        return _grads(exact)
 
     extra = {"branch_grads": float64_grads(relu_branch(masks, replay=True))} if branch else {}
     return {
         "jax_scalars": {k: float(v) for k, v in jax_scalars.items()},
         "port_scalars": {k: float(v) for k, v in port_scalars.items()},
         "jax_grads": jax_grads,
-        "port_grads": {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
+        "port_grads": _grads(model),
         "exact_grads": float64_grads(contextlib.nullcontext()),
         "jax_after": jax_after,
         "port_after": {k: v.numpy().copy() for k, v in model.state_dict().items()},
         "before": export_state_dict(variables),
         **extra,
     }
+
+
+def _grads(model):
+    """Each parameter's gradient as numpy; zeros where none reached it (a
+    parameter upstream of an sg_cuts cut)."""
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy().copy()
+            for k, p in model.named_parameters()}
 
 
 # gradients whose float64 norm is below this are zero in exact arithmetic

@@ -232,3 +232,32 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
             args[0].transpose(1, 2), *args[1:], 4, 2.0, True)
     with pytest.raises(ValueError, match="float32"):
         warp_correlate.fused_cost_volume(args[0].double(), *args[1:], 4, 2.0, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_fuse_d", [True, False])
+@pytest.mark.parametrize("shape, row0, rows", [
+    ((128, 160, 32, 8, 8), 64, 64),   # stage 2 of DTU-mid, the second of 2 bands
+    ((256, 320, 16, 4, 4), 192, 64),  # stage 3, the last of 4
+    ((64, 80, 64, 8, 8), 16, 24),     # a band that is no multiple of a block
+])
+def test_kernel_on_a_band_matches_plain_on_card(cuda_device, shape, row0, rows,
+                                                attn_fuse_d):
+    """K1 with a band offset and whole sources (Hs != H) against its plain
+    version on the same band, and against the whole volume's rows."""
+    h, w, c, d, g = shape
+    inp = stage_inputs(6, h, w, c, d, nsrc=4)
+    ref, src, ref_proj, src_projs, hypo = (t(inp[k], cuda_device) for k in
+                                           ("ref", "src", "ref_proj", "src_projs", "hypo"))
+    band = slice(row0, row0 + rows)
+    args = (ref[:, band].contiguous(), src, ref_proj, src_projs,
+            hypo[:, :, band].contiguous(), g, 2.0, attn_fuse_d, row0)
+    got = warp_correlate.fused_cost_volume(*args)
+    want = warp_correlate.fused_cost_volume_plain(*args)
+    whole = warp_correlate.fused_cost_volume(ref, src, ref_proj, src_projs, hypo, g, 2.0,
+                                             attn_fuse_d)
+    torch.cuda.synchronize()
+    assert got.shape == (1, d, rows, w, g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # one pixel's arithmetic is the same whichever rows the launch holds
+    assert torch.equal(got, whole[:, :, band])

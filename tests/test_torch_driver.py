@@ -271,3 +271,58 @@ def test_main_fuses_every_scan_of_tanks_and_eth3d(tmp_path, random_ckpt, monkeyp
         for v in range(n_views):
             assert os.path.exists(os.path.join(outdir, scan, f"mask/{v:08d}_final.png"))
     assert not os.path.exists(os.path.join(outdir, "dtu_metrics.json"))
+
+
+def _flag_argvs(parser):
+    """Per option of `parser`: argv lists that set it to each of its choices
+    (or to a value of its type), after the parser's required flags."""
+    import argparse
+
+    required = []
+    for a in parser._actions:
+        if a.required:
+            required += [a.option_strings[0], "x"]
+    for a in parser._actions:
+        if not a.option_strings or isinstance(a, argparse._HelpAction):
+            continue
+        opt = a.option_strings[0]
+        if a.nargs == 0:  # store_true
+            yield a, [*required, opt]
+        elif a.choices:
+            for c in a.choices:
+                yield a, [*required, opt, str(c)]
+        else:
+            yield a, [*required, opt, "x" if a.default is None else str(a.default)]
+
+
+@pytest.mark.parametrize("name", ["build_test_parser", "build_train_parser"])
+def test_every_jax_flag_and_choice_parses(name):
+    """Each option string and each choice of the JAX parser parses in the
+    port's, to the same value; the port adds --device alone."""
+    from mvster_tpu.tools import cli as jax_cli
+    from mvster_tpu_torch.tools import cli as port_cli
+
+    jax_parser, port_parser = getattr(jax_cli, name)(), getattr(port_cli, name)()
+    port_actions = {s: a for a in port_parser._actions for s in a.option_strings}
+    jax_options = set()
+    for action, argv in _flag_argvs(jax_parser):
+        jax_options.update(action.option_strings)
+        for opt in action.option_strings:
+            assert opt in port_actions, opt
+            assert port_actions[opt].dest == action.dest, opt
+        want = getattr(jax_parser.parse_args(argv), action.dest)
+        assert getattr(port_parser.parse_args(argv), action.dest) == want, argv
+    assert set(port_actions) - jax_options == {"-h", "--help", "--device"}
+
+
+@pytest.mark.parametrize("fold", ["auto", "on", "off"])
+def test_reg2d_fold_reaches_the_config_as_in_jax(fold):
+    """--reg2d_fold sets the config's reg2d_fold as the JAX CLI does (the
+    port accepts it and runs the same function either way)."""
+    from mvster_tpu.tools import cli as jax_cli
+    from mvster_tpu_torch.tools import cli as port_cli
+
+    argv = ["--testpath", "x", "--testlist", "x", "--loadckpt", "x", "--reg2d_fold", fold]
+    want = jax_cli.model_config_from_args(jax_cli.build_test_parser().parse_args(argv))
+    got = port_cli.model_config_from_args(port_cli.build_test_parser().parse_args(argv))
+    assert got.reg2d_fold == want.reg2d_fold

@@ -38,8 +38,10 @@ def test_importing_every_module_loads_no_jax():
     lines = proc.stdout.strip().split("\n")
     names = set(lines[0].split())
     assert len(names) >= 30, proc.stdout
-    # the data-parallel layer too: its process group and its reductions
-    assert {"mvster_tpu_torch.dist.mesh", "mvster_tpu_torch.dist.reduce"} <= names, names
+    # the data-parallel layer too (its process group, its reductions, the
+    # image-row sharding) and the debug dumps
+    assert {"mvster_tpu_torch.dist.mesh", "mvster_tpu_torch.dist.reduce",
+            "mvster_tpu_torch.dist.spatial", "mvster_tpu_torch.utils.debug"} <= names, names
     loaded = set(lines[1].split()) if len(lines) > 1 else set()
     assert loaded <= ALLOWED_LOADED, loaded - ALLOWED_LOADED
 

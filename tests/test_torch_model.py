@@ -65,15 +65,6 @@ def test_config_fields_and_defaults_match_jax():
             == dataclasses.asdict(JaxConfig.dtu_default(mono=False)))
 
 
-@pytest.mark.parametrize("override", [dict(sg_cuts=("fpn",))])
-def test_configs_the_port_does_not_run_raise(override):
-    """The JAX package's measurement hook sg_cuts is all the port refuses."""
-    config = MVS4NetConfig.dtu_default(mono=False, **override)
-    assert config.unsupported() == ["sg_cuts=('fpn',)"]
-    with pytest.raises(NotImplementedError):
-        MVS4Net(config)
-
-
 @pytest.mark.parametrize("override", [
     dict(arch_mode="convnext"), dict(reg_net="reg3d"), dict(dcn=True),
     dict(pos_enc=1), dict(asff=True), dict(agg_type="ConvBnReLU3D_CAM"),
