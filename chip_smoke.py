@@ -156,6 +156,37 @@ Phases, one line each, any failure exits non-zero:
      DTU-mid train step (batch 2, --ot_backend pallas) under no cut and
      each sg_cuts cut: zero gradients upstream, K3 only under no cut and
      "mono", the step ms by CUDA events in turns
+ 23. the image-row sharded train step (dist/spatial.make_spatial_train_step)
+     as gloo ranks on the one card (`--spatial-train-rank`, four processes
+     started once), seeded weights of dtu_default() with the mono branch
+     on, one SGD step, TF32 off, the published loss weights, each run
+     against one process's steps on the card: (a) the DTU-mid train cell
+     (phase 8's tree, batch 2) as data 2 x spatial 2 and as spatial 2,
+     each with --ot_backend pallas and xla in float32 and once in float64
+     (plain warp; each split's exact reference), and as spatial 2 in
+     bfloat16 compute; (b) DTU's raw 1152x1600, batch 1, as spatial 2 in
+     float32 (pallas) and float64.  The float64 runs' gradients within
+     relative L2 1e-7 of one process's float64 step; the float32 runs'
+     scalars against one process's float32 step of the same backend (rtol
+     1e-5; 1e-4 where a near-tied argmax moves a later stage's window; the
+     pixel fractions atol 1e-4 more), and each gradient against one
+     process's float32 step whose BatchNorm takes the ranks' arithmetic
+     (flax_moments), both measured from their float64 steps: within 10x
+     its noise and 1.5x the summed noise (check_grads' rule), the median
+     within 2x; bf16 against one process's bf16 step (the loss at rtol
+     1e-3, each stage loss at 5e-2, the gradients' median distance from
+     float64 within 1.5x); the ranks' parameters, running statistics and
+     scalars bitwise equal; per rank 16 K2 and 16 K3 launches, and 4 K4
+     and 4 K5 with pallas; each rank's peak memory and ms, and at raw the
+     peak against one process's and the prediction, the ms a step by host
+     clock (gloo through the host: not a scaling number).  (c) the
+     weights after (a)'s spatial-2 pallas step served through
+     make_spatial_infer_step (4 K1 launches a rank), held against one
+     process's forward by the stage comparator; then K2 and K3 on the
+     last of two bands of the four DTU-mid stages (batch 2) and of the
+     four raw stages (batch 1; row0 = half the rows, whole sources, 4
+     sources) against plain (K2 bitwise, K3 at phase 7's tolerance), and
+     K4/K5 at those bands' pixels (phase 12's tolerances)
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -167,7 +198,9 @@ max_abs_err_by_path; every kernel's launches on phase 20 (a)'s path
 and over phase 21's paths under launches_by_path, with phase 22's:
 spatial_serve (K1, over the ranks of its three runs; its band error
 under max_abs_err_by_path), vis_eta (K2; its error beside train's under
-max_abs_err_by_path) and sg_cuts (K2-K5)), and
+max_abs_err_by_path) and sg_cuts (K2-K5)), and phase 23's:
+spatial_train (K2-K5 over the ranks of its runs; their band errors under
+max_abs_err_by_path) and spatial_train_serve (K1, (c)), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -359,7 +392,7 @@ def model_inputs(sample, device):
 
 
 def build_model(seed, **overrides):
-    model = MVS4Net(MVS4NetConfig.dtu_default(mono=False, **overrides))
+    model = MVS4Net(MVS4NetConfig.dtu_default(**{"mono": False, **overrides}))
     sd = random_state_dict(model, seed)
     # BatchNorm running statistics perturbed from a numpy seed
     rng = np.random.default_rng(seed)
@@ -859,6 +892,28 @@ def _assert_dpred_close(got, want):
                                atol=K5_FLOOR * want.abs().max().item())
 
 
+def k45_vs_plain(gt, hypo, attn, mask):
+    """K4 and K5 against their plain versions on one stage's inputs (phase
+    12's tolerances): (K4's and K5's largest |kernel - plain|, and the
+    kernels' inputs pred, gt_idx, the mask m and the cotangent g)."""
+    b, d, h, w = attn.shape
+    pred = attn.reshape(b, d, h * w)
+    gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(b, h * w).int()
+    m = mask.reshape(b, h * w).float()
+    g = m / m.sum().clamp(min=1.0)
+    loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
+    dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
+    want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
+    dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
+        raise AssertionError(f"{h}x{w}, D {d}: non-finite K4/K5 output")
+    torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
+    _assert_dpred_close(dpred, dwant)
+    return ((loss - want).abs().max().item(), (dpred - dwant).abs().max().item(),
+            pred, gt_idx, m, g)
+
+
 def phase12_sinkhorn(dev):
     """K4 and K5 against their plain versions at the DTU-mid stage shapes,
     batch 2; returns the max errors and each stage's inputs for phase 15."""
@@ -866,21 +921,8 @@ def phase12_sinkhorn(dev):
     per_stage = []
     for si, (h, w, _, d, _) in enumerate(STAGES):
         gt, hypo, attn, mask = ot_inputs(400 + si, h, w, d, dev)
-        pred = attn.reshape(BATCH, d, h * w)
-        gt_idx = torch.argmin((hypo - gt[:, None]).abs(), dim=1).reshape(BATCH, h * w).int()
-        m = mask.reshape(BATCH, h * w).float()
-        g = m / m.sum().clamp(min=1.0)
-        loss = sinkhorn_ot.sinkhorn_fwd(pred, gt_idx, OT_ITERS)
-        dpred = sinkhorn_ot.sinkhorn_bwd(pred, gt_idx, g, OT_ITERS)
-        want = sinkhorn_ot.sinkhorn_pixels_plain(pred, gt_idx, OT_ITERS)
-        dwant = sinkhorn_ot.sinkhorn_pixels_bwd_plain(pred, gt_idx, g, OT_ITERS)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(loss).all() and torch.isfinite(dpred).all()):
-            raise AssertionError(f"stage{si + 1}: non-finite K4/K5 output")
-        torch.testing.assert_close(loss, want, rtol=K4_RTOL, atol=K4_ATOL)
-        _assert_dpred_close(dpred, dwant)
-        err4 = max(err4, (loss - want).abs().max().item())
-        err5 = max(err5, (dpred - dwant).abs().max().item())
+        e4, e5, pred, gt_idx, m, g = k45_vs_plain(gt, hypo, attn, mask)
+        err4, err5 = max(err4, e4), max(err5, e5)
         a, b = attn.clone().requires_grad_(), attn.clone().requires_grad_()
         sinkhorn_ot.sinkhorn_loss_fused(gt, hypo, a, mask, OT_ITERS).backward()
         per_pixel = sinkhorn_ot.sinkhorn_pixels_plain(b.reshape(BATCH, d, h * w), gt_idx,
@@ -2405,6 +2447,594 @@ def phase22(dev, tmp, root, ckpt, serve, model, mid_out, card):
     return k1, k1_err, k2_vis, k2_err, cuts
 
 
+# phase 23: the image-row sharded train step (dist/spatial.make_spatial_train_step)
+# as gloo ranks on the one card (NCCL puts no two ranks on one device): (a) the
+# DTU-mid train cell as data 2 x spatial 2 and as spatial 2, each with
+# --ot_backend pallas and xla, and in bfloat16 compute; (b) DTU's raw
+# resolution as spatial 2; (c) the weights after (a)'s spatial-2 pallas step
+# served through K1 on a band
+SPATIAL_TRAIN_RANK = "--spatial-train-rank"
+F64, BF16 = torch.float64, torch.bfloat16
+# (name, data, spatial, batch, ot_backend, dtype) of each run, in the order
+# the ranks run them: the 4-rank runs first, then ranks 0 and 1 in a world of
+# their own.  dtype None is float32, BF16 bfloat16 compute (float32
+# parameters); the float64 runs (the plain warp: K2 takes float32 only) are
+# each split's exact reference.  A name is <resolution>_<split>_<kind>
+TRAIN_RUNS = (("mid_d2s2_pallas", 2, 2, BATCH, "pallas", None),
+              ("mid_d2s2_xla", 2, 2, BATCH, "xla", None),
+              ("mid_d2s2_f64", 2, 2, BATCH, "xla", F64),
+              ("mid_s2_pallas", 1, 2, BATCH, "pallas", None), ("mid_s2_xla", 1, 2, BATCH, "xla", None),
+              ("mid_s2_f64", 1, 2, BATCH, "xla", F64), ("mid_s2_bf16", 1, 2, BATCH, "pallas", BF16),
+              ("raw_s2_pallas", 1, 2, 1, "pallas", None), ("raw_s2_f64", 1, 2, 1, "xla", F64))
+# one process's steps on the card, each run's references: (resolution,
+# ot_backend, dtype, moments).  moments: its BatchNorm takes the spatial
+# ranks' arithmetic (flax_moments), the float32 runs' gradient reference
+SINGLE_RUNS = (("mid", "pallas", None, False), ("mid", "xla", None, False),
+               ("mid", "xla", F64, False), ("mid", "pallas", None, True),
+               ("mid", "xla", None, True), ("mid", "pallas", BF16, False),
+               ("raw", "pallas", None, False), ("raw", "xla", F64, False),
+               ("raw", "pallas", None, True))
+SERVED_RUN = "mid_s2_pallas"  # (c) serves the weights after this run's step
+# the scalars downstream of a later stage's hypothesis window: a band's convs
+# round in another order than the whole image's, so a near-tied stage argmax
+# may move a pixel's window, and with it that pixel's share of a stage's OT
+# loss, up to (D - 1) / N, and its final depth (measured on an H100 at
+# DTU-mid: s2_c_loss up to 4.6e-5 apart, abs_depth_error 1.1e-5)
+WINDOW_SCALARS = ("loss", "s1_c_loss", "s2_c_loss", "s3_c_loss", "abs_depth_error")
+WINDOW_RTOL = 1e-4
+# a float32 spatial gradient tensor's relative L2 distance from its split's
+# float64 step against one process's with the same BatchNorm arithmetic:
+# each tensor's at most F32_NOISE_RATIO times (check_grads' rule for two
+# float32 steps), the median over the tensors at most F32_MEDIAN_RATIO
+# times (tests/test_torch_spatial_train.py's ratio)
+F32_NOISE_RATIO, F32_MEDIAN_RATIO = 10.0, 2.0
+# a float64 spatial step's gradient tensor from one process's float64 step
+# (measured on an H100 at DTU-mid: 9.3e-11; the Sinkhorn stays float32)
+F64_GRAD_RTOL = 1e-7
+# bf16 against one process's bf16 step (tests/test_torch_bf16.py's train
+# step criteria): the loss's rtol, each stage loss's, and the median over
+# the gradient tensors of the distance from float64, at most this times one
+# process's
+BF16_LOSS_RTOL, BF16_STAGE_RTOL, BF16_MEDIAN_RATIO = 1e-3, 5e-2, 1.5
+SPATIAL_SEED = 23
+# (b)'s peak device memory, predicted in PERF.md before the first run: one
+# process's step and a rank's, GiB
+RAW_PEAK_GUESS_GIB = (17.0, 9.5)
+# (H, W, C, D, G) of each stage at DTU's raw 1152x1600
+RAW_STAGES = [(RAW_H >> (3 - s), RAW_W >> (3 - s), c, d, g)
+              for s, (_, _, c, d, g) in enumerate(STAGES)]
+
+
+def _kind(backend, dtype):
+    return {F64: "f64", BF16: "bf16"}.get(dtype, backend)
+
+
+def _take(batch, rows, dtype=None):
+    """The rows of a numpy batch as CPU tensors, float32 or `dtype`."""
+    if isinstance(batch, dict):
+        return {k: _take(v, rows, dtype) for k, v in batch.items()}
+    return torch.from_numpy(np.ascontiguousarray(batch[rows], dtype=np.float32)).to(dtype)
+
+
+def _spatial_train_state():
+    """phase 4's kind of seeded weights (a decisive depth softmax, perturbed
+    running statistics) for dtu_default() with the mono branch on."""
+    return {k: v.clone() for k, v in build_model(SPATIAL_SEED, mono=True).state_dict().items()}
+
+
+def _train_model(state, dtype, dev):
+    """dtu_default() with `state`: float32, float64, or bfloat16 compute."""
+    model = MVS4Net(MVS4NetConfig.dtu_default(
+        **({"compute_dtype": "bfloat16"} if dtype == BF16 else {})))
+    model.load_state_dict(state, strict=True)
+    return model.to(dev, F64 if dtype == F64 else torch.float32)
+
+
+@contextlib.contextmanager
+def flax_moments():
+    """Within: one process's train-mode BatchNorm takes its moments as a step
+    under a group of more than one rank does (nn/blocks._FlaxStats.
+    _moments_forward: flax's variance E[x^2] - E[x]^2 from each channel's
+    float32 sums) instead of through cuDNN, so one process rounds its
+    statistics as the spatial ranks do."""
+    from mvster_tpu_torch.nn import blocks
+
+    forward = blocks._FlaxStats.forward
+
+    def moments(self, x):
+        if not self.training:
+            return forward(self, x)
+        x = x.to(self.weight.dtype)
+        self._check_input_dim(x)
+        return self._moments_forward(x)
+
+    blocks._FlaxStats.forward = moments
+    try:
+        yield
+    finally:
+        blocks._FlaxStats.forward = forward
+
+
+def _spatial_train_batches(root):
+    """The numpy batches: the DTU tree's first training batch (DTU-mid,
+    batch 2) and a synthetic 1152x1600 sample with ground truth (batch 1)."""
+    from mvster_tpu_torch.data import MVSLoader
+    from mvster_tpu_torch.data.dtu import DTUDataset
+
+    ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
+    mid = next(iter(MVSLoader(ds, BATCH, prefetch=0)))
+    mid = {k: v for k, v in mid.items() if not isinstance(v, (list, str))}
+    raw = synthetic_sample(SPATIAL_SEED, batch=1, nviews=NVIEWS, h=RAW_H, w=RAW_W,
+                           with_gt=True)
+    return {"mid": mid, "raw": raw}
+
+
+def _serve_band(model, groups, batch, dev):
+    """(c): make_spatial_infer_step on the first sample of `batch` with every
+    count at 0 just before; its launches and its forward's stage outputs
+    (caught by a hook on the model), gathered."""
+    from mvster_tpu_torch.dist import spatial
+
+    step = spatial.make_spatial_infer_step(model, groups)
+    outs = []
+    hook = model.register_forward_hook(lambda mod, args, out: outs.append(out))
+    _reset_counts()
+    try:
+        step(batch["imgs"][:1], {k: v[:1] for k, v in batch["proj_matrices"].items()},
+             batch["depth_values"][:1])
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    launches = _launch_counts()
+    (out,) = outs
+    gathered = {f"stage{s}": {k: spatial.gather_rows(out[f"stage{s}"][k], groups).cpu().numpy()
+                              for k in STAGE_KEYS} for s in range(1, 5)}
+    return {"launches": launches, "gathered": gathered}
+
+
+def spatial_train_rank(tmp):
+    """Phase 23, one of four processes on the one card over gloo: each run of
+    TRAIN_RUNS that has this rank, one SGD step of make_spatial_train_step
+    with every count at 0 just before; after SERVED_RUN, (c); after
+    raw_s2_pallas, SPATIAL_TIMED more steps timed.  Results to
+    <tmp>/spatial_train_rank<r>.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mvster_tpu_torch.dist import spatial
+    from mvster_tpu_torch.dist.mesh import maybe_initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the four processes share the host's cores: unbounded, their CPU
+    # threads spin against each other and gloo's (measured on an 8-core CPU
+    # rehearsal: 60x slower steps)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(tmp, "spatial_train_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    rank, _ = maybe_initialize_distributed(dev, backend="gloo")
+    out = {}
+    for name, data, n, b, backend, dtype in TRAIN_RUNS:
+        if rank >= data * n:
+            break
+        if dist.get_world_size() != data * n:
+            dist.destroy_process_group()
+            os.environ.update(WORLD_SIZE=str(data * n), MASTER_PORT=str(inputs["port"]))
+            maybe_initialize_distributed(dev, backend="gloo")
+        groups = spatial.make_2d_groups(data, n)
+        share = b // data
+        batch = _take(inputs[name[:3]], slice(groups.data_row * share,
+                                              (groups.data_row + 1) * share),
+                      F64 if dtype == F64 else None)
+        model = _train_model(inputs["state"], dtype, dev)
+        step = spatial.make_spatial_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=DDP_LR), groups,
+            loss_kwargs=dict(LOSS_KW, ot_backend=backend))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with plain_warp() if dtype == F64 else contextlib.nullcontext():
+            scalars, images = step(batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        res = dict(band=groups.band, data_row=groups.data_row, launches=_launch_counts(),
+                   scalars={k: float(v) for k, v in scalars.items()}, first_ms=first_ms,
+                   peak=torch.cuda.max_memory_allocated(dev) - base,
+                   depth_shape=tuple(images["depth_est"].shape),
+                   after={k: v.cpu().numpy().copy() for k, v in model.state_dict().items()},
+                   grads={k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()},
+                   finite=bool(all(torch.isfinite(v).all() for v in images.values())))
+        del images
+        if name == SERVED_RUN:
+            res["serve"] = _serve_band(model.eval(), groups, batch, dev)
+        if name == "raw_s2_pallas":
+            ms = []
+            for _ in range(SPATIAL_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res["ms"] = ms
+        out[name] = res
+        del model, step, batch
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"spatial_train_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _single_train_step(state, batch, backend, dev, dtype=None, timed=0, moments=False):
+    """One process's SGD step of the same weights on the whole batch (numpy),
+    float32, float64 (the plain warp) or bfloat16 compute, with its
+    BatchNorm under flax_moments if `moments`: the first step's scalars and
+    gradients, the peak device memory above what was allocated before, and
+    the host ms of the first step and of `timed` more."""
+    b = {k: ({s: x.to(dev) for s, x in v.items()} if isinstance(v, dict) else v.to(dev))
+         for k, v in _take(batch, slice(None), F64 if dtype == F64 else None).items()}
+    model = _train_model(state, dtype, dev)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=DDP_LR),
+                           loss_kwargs=dict(LOSS_KW, ot_backend=backend))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    with contextlib.ExitStack() as stack:
+        if dtype == F64:
+            stack.enter_context(plain_warp())
+        if moments:
+            stack.enter_context(flax_moments())
+        for i in range(1 + timed):
+            t0 = time.perf_counter()
+            scalars, _ = step(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                res = dict(scalars={k: float(v) for k, v in scalars.items()},
+                           grads={k: p.grad.double().cpu().numpy()
+                                  for k, p in model.named_parameters()})
+    res.update(ms=ms, peak=torch.cuda.max_memory_allocated(dev) - base)
+    del model, step, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def k23_on_band(dev, n, seed, stages=STAGES, batch=BATCH):
+    """K2 and K3 on the last of n bands of a train step's four stages
+    (`stages`' H, W, C and D, 4 sources; row0 = (n - 1) rows, the sources
+    whole), each view's coordinates from plane_sweep_coords with that
+    offset: K2 against warp_plain bitwise, K3 against scatter_grad_plain at
+    phase 7's tolerance.  Returns K2's and K3's largest |kernel - plain|.
+    Called after the path's counts were read."""
+    err2 = err3 = 0.0
+    for si, (h, w, c, d, _) in enumerate(stages):
+        rows = h // n
+        row0 = (n - 1) * rows
+        inp = stage_inputs(seed + si, h, w, c, d, nsrc=NVIEWS - 1, batch=batch)
+        ref_proj = t(inp["ref_proj"], dev)
+        hypo = t(inp["hypo"][:, :, row0:], dev)
+        rng = np.random.default_rng(seed + 10 + si)
+        for v in range(NVIEWS - 1):
+            x, y = plane_sweep_coords(t(inp["src_projs"][v], dev), ref_proj, hypo, row0)
+            src = t(inp["src"][v], dev)
+            cot = t(rng.normal(size=(batch, d, rows, w, c)), dev)
+            got = warp_vjp.warp_gather(src, x, y)
+            want = warp_vjp.warp_plain(src, x, y)
+            dsrc = warp_vjp.scatter_grad(cot, x, y, src.shape)
+            dwant = warp_vjp.scatter_grad_plain(cot, x, y, src.shape)
+            torch.cuda.synchronize()
+            if got.shape != (batch, d, rows, w, c) or dsrc.shape != src.shape:
+                raise AssertionError(f"band {h}x{w}: K2 {tuple(got.shape)}, "
+                                     f"K3 {tuple(dsrc.shape)}")
+            if not (torch.isfinite(got).all() and torch.isfinite(dsrc).all()):
+                raise AssertionError(f"band {h}x{w} view {v}: non-finite K2/K3 output")
+            if not torch.equal(got, want):
+                raise AssertionError(f"band {h}x{w} view {v}: K2 is not plain's bits, "
+                                     f"max|d| {(got - want).abs().max().item():.3e}")
+            torch.testing.assert_close(dsrc, dwant, rtol=K3_RTOL, atol=K3_ATOL)
+            err2 = max(err2, (got - want).abs().max().item())
+            err3 = max(err3, (dsrc - dwant).abs().max().item())
+            del x, y, src, cot, got, want, dsrc, dwant
+    torch.cuda.empty_cache()
+    return err2, err3
+
+
+def k45_on_band(dev, n, seed, stages=STAGES, batch=BATCH):
+    """K4 and K5 at the pixels of one of n bands of each of `stages` against
+    their plain versions (phase 12's tolerances): their largest |d|."""
+    err4 = err5 = 0.0
+    for si, (h, w, _, d, _) in enumerate(stages):
+        e4, e5, *_ = k45_vs_plain(*ot_inputs(seed + si, h // n, w, d, dev, b=batch))
+        err4, err5 = max(err4, e4), max(err5, e5)
+    torch.cuda.empty_cache()
+    return err4, err5
+
+
+def _check_spatial_grads(got, exact, ref, ref_exact, one, what):
+    """Each float32 gradient of a spatial run (`got`) against one process's
+    float32 step with the same BatchNorm arithmetic (`ref`, flax_moments),
+    each measured by its distance from a float64 step: e_sp, the relative L2
+    distance from its split's float64 spatial step (`exact`), at most
+    F32_NOISE_RATIO times e_ref (or 1e-4), that of `ref` from one process's
+    float64 step (`ref_exact`), and the two within 1.5x their summed noise
+    (or 1e-4), check_grads' rule; under GRAD_NOISE, at atol GRAD_NOISE; and
+    the median of e_sp at most F32_MEDIAN_RATIO times e_ref's.  Each
+    float32 step is held to a float64 step of its own split because a
+    near-tied argmax moves a later stage's window at a pixel between any
+    two steps that round differently, which moves every gradient upstream
+    of that stage by the pixel's share.  `one`, one process's step through
+    cuDNN's BatchNorm, is measured alongside.  Returns the worst (e_sp,
+    key), (e_ref, key), (e_sp / max(e_ref, 1e-4), "key: e_sp / e_ref"),
+    (relative L2 between the two, key) and (e_one, key), and the medians of
+    e_sp, e_ref and e_one."""
+    worst = {k: (0.0, "") for k in ("sp", "ref", "ratio", "rel", "one")}
+    es, bad = {"sp": [], "ref": [], "one": []}, []
+    for key, g_e in ref_exact.items():
+        g_s, g_r = got[key], ref[key]
+        if np.linalg.norm(g_e) < GRAD_NOISE:  # zero in exact arithmetic
+            np.testing.assert_allclose(g_s, g_r, atol=GRAD_NOISE, err_msg=f"{what} {key}")
+            continue
+        e = dict(sp=relative_l2(g_s, exact[key]), ref=relative_l2(g_r, g_e),
+                 one=relative_l2(one[key], g_e), rel=relative_l2(g_s, g_r))
+        e["ratio"] = e["sp"] / max(e["ref"], 1e-4)
+        if (e["sp"] > max(1e-4, F32_NOISE_RATIO * e["ref"])
+                or e["rel"] > max(1e-4, 1.5 * (e["sp"] + e["ref"]))):
+            bad.append(f"{key}: from float64, spatial {e['sp']:.2e}, one process "
+                       f"{e['ref']:.2e}; between them {e['rel']:.2e}")
+        for k in es:
+            es[k].append(e[k])
+        for k, v in e.items():
+            if v > worst[k][0]:
+                worst[k] = (v, key if k != "ratio" else
+                            f"{key}: {e['sp']:.2e} / {e['ref']:.2e}")
+    medians = {k: float(np.median(v)) for k, v in es.items()}
+    if medians["sp"] > F32_MEDIAN_RATIO * medians["ref"]:
+        bad.append(f"median from float64, spatial {medians['sp']:.2e}, one process "
+                   f"{medians['ref']:.2e}")
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} gradients: " + "; ".join(bad[:6]))
+    return worst, medians
+
+
+def _check_scalars(got, want, dtype, what):
+    """A run's scalars against one process's: float64 at rtol 1e-6; float32
+    at 1e-5, WINDOW_RTOL for WINDOW_SCALARS, the pixel fractions at atol
+    PIXEL_ATOL more; bf16 the loss at BF16_LOSS_RTOL and each stage loss at
+    BF16_STAGE_RTOL.  Returns the worst relative difference and its key, and
+    the keys that took the pixel fractions' atol."""
+    flips, worst, bad = set(), (0.0, ""), []
+    for key, v in want.items():
+        if dtype == BF16 and key != "loss" and not key.endswith(("_d_loss", "_c_loss")):
+            continue
+        diff = abs(got[key] - v)
+        if dtype == BF16:
+            rtol = BF16_LOSS_RTOL if key == "loss" else BF16_STAGE_RTOL
+        else:
+            rtol = 1e-6 if dtype == F64 else WINDOW_RTOL if key in WINDOW_SCALARS else 1e-5
+        if diff > rtol * abs(v) + 1e-7:
+            # a pixel fraction: a value within float32 rounding of its
+            # threshold lands on either side
+            if not key.startswith(PIXEL_FRACTIONS) or diff > rtol * abs(v) + PIXEL_ATOL:
+                bad.append(f"{key}: {got[key]} vs one process {v}")
+            flips.add(key)
+        worst = max(worst, (diff / max(abs(v), 1e-30), key))
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    return worst, flips
+
+
+def _f64_grads_close(got, want, what):
+    """Each float64 gradient within F64_GRAD_RTOL of one process's float64
+    step (zero ones at atol 1e-10): the worst relative L2 and its key."""
+    worst = (0.0, "")
+    for key, g in want.items():
+        if np.linalg.norm(g) < GRAD_NOISE:  # zero in exact arithmetic
+            np.testing.assert_allclose(got[key], g, atol=1e-10, err_msg=f"{what} {key}")
+            continue
+        worst = max(worst, (relative_l2(got[key], g), key))
+    if worst[0] > F64_GRAD_RTOL:
+        raise AssertionError(f"{what} {worst[1]}: relative L2 {worst[0]:.2e} from one "
+                             f"process's float64 step")
+    return worst
+
+
+def _bf16_grads_median(got, exact, one, one_exact, what):
+    """bf16: every gradient finite, and the median over the tensors of the
+    relative L2 distance from the split's float64 step at most
+    BF16_MEDIAN_RATIO times one process's bf16 step's from its float64 one.
+    Returns both medians."""
+    e_sp, e_one = [], []
+    for key, g_e in one_exact.items():
+        if not np.isfinite(got[key]).all():
+            raise AssertionError(f"{what} {key}: non-finite gradient")
+        if np.linalg.norm(g_e) >= GRAD_NOISE:
+            e_sp.append(relative_l2(got[key], exact[key]))
+            e_one.append(relative_l2(one[key], g_e))
+    medians = float(np.median(e_sp)), float(np.median(e_one))
+    if medians[0] > BF16_MEDIAN_RATIO * medians[1]:
+        raise AssertionError(f"{what}: median relative L2 from float64 {medians[0]:.2e}, one "
+                             f"process's {medians[1]:.2e}")
+    return medians
+
+
+def phase23_spatial_train(dev, tmp, root, card):
+    """The spatial train step as gloo ranks on the one card against one
+    process's steps on the card, (a)-(c).  Returns the K1-K5 launches over
+    the ranks of every run ((c)'s K1 apart) and the band errors of K2-K5."""
+    import pickle
+    import socket
+
+    from mvster_tpu_torch.train.loop import device_batch
+
+    t0 = time.perf_counter()
+    state = _spatial_train_state()
+    batches = _spatial_train_batches(root)
+    single = {}
+    for res_, backend, dtype, moments in SINGLE_RUNS:
+        key = f"{res_}_{_kind(backend, dtype)}" + ("_m" if moments else "")
+        single[key] = _single_train_step(
+            state, batches[res_], backend, dev, dtype, moments=moments,
+            timed=SPATIAL_TIMED if key == "raw_pallas" else 0)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    with open(os.path.join(tmp, "spatial_train_inputs.pkl"), "wb") as f:
+        pickle.dump(dict(batches, state=state, port=ports[1]), f)
+    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(ports[0]))
+    env.pop("LOCAL_RANK", None)
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "chip_smoke", SPATIAL_TRAIN_RANK, tmp],
+                              cwd=ROOT, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"spatial train rank {r} exited {p.returncode}:\n"
+                                 f"{logs[r][-3000:]}")
+    ranks_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"spatial_train_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+
+    totals = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    for name, data, n, b, backend, dtype in TRAIN_RUNS:
+        parts = [ranks[r][name] for r in range(data * n)]
+        per = 4 if backend == "pallas" else 0
+        k23 = 0 if dtype == F64 else 4 * (NVIEWS - 1)
+        want = dict(K1=0, K2=k23, K3=k23, K4=per, K5=per)
+        res_, kind = name[:3], _kind(backend, dtype)
+        h, w = (H, W) if res_ == "mid" else (RAW_H, RAW_W)
+        for r, part in enumerate(parts):
+            if (part["data_row"], part["band"]) != (r // n, r % n) or part["launches"] != want:
+                raise AssertionError(f"{name} rank {r}: data row {part['data_row']}, band "
+                                     f"{part['band']}, launches {part['launches']}, "
+                                     f"expected {want}")
+            if part["depth_shape"] != (b // data, h // n, w) or not part["finite"]:
+                raise AssertionError(f"{name} rank {r}: images {part['depth_shape']}, "
+                                     f"finite {part['finite']}")
+            for k in totals:
+                totals[k] += part["launches"][k]
+            # parameters and running statistics bitwise equal across the ranks
+            for key, v in parts[0]["after"].items():
+                if not np.array_equal(part["after"][key], v):
+                    raise AssertionError(f"{name}: rank {r}'s {key} differs from rank 0's")
+            if part["scalars"] != parts[0]["scalars"]:
+                raise AssertionError(f"{name}: rank {r}'s scalars differ from rank 0's")
+        one = single[f"{res_}_{kind}"]
+        worst_scalar, flips = _check_scalars(parts[0]["scalars"], one["scalars"], dtype, name)
+        dtype_name = {F64: "float64, plain warp", BF16: "bfloat16 compute"}.get(dtype, "float32")
+        head = (f"[23{'a' if res_ == 'mid' else 'b'} spatial train] {name}: dtu_default() "
+                f"(mono on) at {h}x{w}, {NVIEWS} views, batch {b} as data {data} x spatial "
+                f"{n} gloo ranks on the one card (bands of {h // n} rows), --ot_backend "
+                f"{backend}, {dtype_name}, one SGD step (lr {DDP_LR}) vs one process's step "
+                f"on the card: loss {parts[0]['scalars']['loss']:.6f} vs "
+                f"{one['scalars']['loss']:.6f}, worst scalar rel diff {worst_scalar[0]:.2e} "
+                f"({worst_scalar[1]}; ")
+        tail = (f"; parameters and running statistics bitwise equal across the ranks; "
+                f"launches a rank {parts[0]['launches']}; peak a rank "
+                + " / ".join(f"{p['peak'] / 2**20:.1f}" for p in parts)
+                + f" MiB vs one process {one['peak'] / 2**20:.1f} MiB; first step ms (host "
+                f"clock) " + " / ".join(f"{p['first_ms']:.1f}" for p in parts)
+                + f" vs one process {one['ms'][0]:.1f} | {card}")
+        exact = ranks[0][name[:name.rindex("_")] + "_f64"]["grads"]
+        if dtype == F64:
+            worst = _f64_grads_close(parts[0]["grads"], one["grads"], name)
+            log(head + f"rtol 1e-6); every gradient within relative L2 {worst[0]:.2e} "
+                f"({worst[1]}; <= {F64_GRAD_RTOL}) of one process's float64 step" + tail)
+        elif dtype == BF16:
+            medians = _bf16_grads_median(parts[0]["grads"], exact, one["grads"],
+                                         single[f"{res_}_f64"]["grads"], name)
+            log(head + f"rtol {BF16_LOSS_RTOL} for the loss, {BF16_STAGE_RTOL} for each "
+                f"stage's); gradients finite, their median relative L2 from their float64 "
+                f"step {medians[0]:.2e}, one process's {medians[1]:.2e} (<= "
+                f"{BF16_MEDIAN_RATIO}x)" + tail)
+        else:
+            worst, medians = _check_spatial_grads(
+                parts[0]["grads"], exact, single[f"{res_}_{backend}_m"]["grads"],
+                single[f"{res_}_f64"]["grads"], one["grads"], name)
+            log(head + f"rtol 1e-5, {WINDOW_RTOL} for {', '.join(WINDOW_SCALARS)}; the "
+                f"pixel fractions atol {PIXEL_ATOL} more, taken by {sorted(flips) or 'none'}); "
+                f"gradients' relative L2 from their float64 step: spatial worst "
+                f"{worst['sp'][0]:.2e} ({worst['sp'][1]}), median {medians['sp']:.2e}; one "
+                f"process with the ranks' BatchNorm arithmetic worst {worst['ref'][0]:.2e} "
+                f"({worst['ref'][1]}), median {medians['ref']:.2e}; spatial / that worst "
+                f"{worst['ratio'][0]:.2f} ({worst['ratio'][1]}; <= {F32_NOISE_RATIO}), median "
+                f"{medians['sp'] / medians['ref']:.2f} (<= {F32_MEDIAN_RATIO}); "
+                f"between them worst {worst['rel'][0]:.2e} ({worst['rel'][1]}; <= 1.5x the "
+                f"summed noise); one process through cuDNN's BatchNorm worst "
+                f"{worst['one'][0]:.2e} ({worst['one'][1]}), median {medians['one']:.2e}"
+                + tail)
+
+    raw = [ranks[r]["raw_s2_pallas"] for r in range(2)]
+    raw_one = single["raw_pallas"]
+    gib = 2.0 ** 30
+    log(f"[23b spatial train raw] {RAW_H}x{RAW_W}, {NVIEWS} views, batch 1, --ot_backend "
+        f"pallas, spatial 2 (bands of {RAW_H // 2} rows): peak a rank "
+        + " / ".join(f"{p['peak'] / gib:.3f}" for p in raw)
+        + f" GiB vs one process's step {raw_one['peak'] / gib:.3f} GiB (predicted "
+        f"{RAW_PEAK_GUESS_GIB[1]} and {RAW_PEAK_GUESS_GIB[0]}); ms a step (host clock; gloo "
+        f"stages every exchange through the host: not a scaling number) "
+        + "; ".join(f"rank {r} {p['first_ms']:.1f} first, "
+                    + " / ".join(f"{m:.1f}" for m in p["ms"]) for r, p in enumerate(raw))
+        + f"; one process {raw_one['ms'][0]:.1f} first, "
+        + " / ".join(f"{m:.1f}" for m in raw_one["ms"][1:]) + f" | {card}")
+
+    # (c) the weights after SERVED_RUN's step, on one process, by the comparator
+    served = [ranks[r][SERVED_RUN]["serve"] for r in range(2)]
+    model = MVS4Net(MVS4NetConfig.dtu_default())
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in ranks[0][SERVED_RUN]["after"].items()}, strict=True)
+    model.to(dev).eval()
+    mid = device_batch(batches["mid"], dev)
+    with torch.inference_mode():
+        want = to_numpy_tree(model(mid["imgs"][:1], {k: v[:1] for k, v in
+                                                      mid["proj_matrices"].items()},
+                                   mid["depth_values"][:1]))
+    del model, mid
+    torch.cuda.empty_cache()
+    for r, part in enumerate(served):
+        if part["launches"] != dict(K1=4, K2=0, K3=0, K4=0, K5=0):
+            raise AssertionError(f"(c) rank {r}: launches {part['launches']}")
+    got = dict(served[0]["gathered"], depth=served[0]["gathered"]["stage4"]["depth"])
+    assert_stage_close(want, got)
+    worst = max(np.abs(got[f"stage{s}"]["attn_weight"] - want[f"stage{s}"]["attn_weight"]).max()
+                for s in range(1, 5))
+
+    # K2-K5 on the bands of both resolutions' runs
+    mid_err = (*k23_on_band(dev, 2, seed=230), *k45_on_band(dev, 2, seed=240))
+    raw_err = (*k23_on_band(dev, 2, seed=250, stages=RAW_STAGES, batch=1),
+               *k45_on_band(dev, 2, seed=260, stages=RAW_STAGES, batch=1))
+    log(f"[23c serve trained] {SERVED_RUN}'s weights after its step through "
+        f"make_spatial_infer_step on 2 ranks (4 K1 launches a rank): matches one process's "
+        f"card forward by the stage comparator (attention max|d| {worst:.3e}) | on the last "
+        f"of 2 bands (row0 = half the stage's rows, whole sources, 4 sources), the DTU-mid "
+        f"stages at batch {BATCH} and the raw 1152x1600 stages at batch 1: K2 vs plain "
+        f"bitwise (max|d| {mid_err[0]:.3e} / {raw_err[0]:.3e}), K3 vs plain max|d| "
+        f"{mid_err[1]:.3e} / {raw_err[1]:.3e} (rtol {K3_RTOL}, atol {K3_ATOL}); K4/K5 at a "
+        f"band's pixels vs plain max|d| {mid_err[2]:.3e} / {raw_err[2]:.3e} and "
+        f"{mid_err[3]:.3e} / {raw_err[3]:.3e} (phase 12's tolerances)")
+    log(f"[23] {time.perf_counter() - t0:.1f} s ({ranks_s:.1f} s for the ranks, 4 processes "
+        f"started once); launches over the ranks of every run {totals}")
+    return totals, served[0]["launches"]["K1"] + served[1]["launches"]["K1"], tuple(
+        max(a, b) for a, b in zip(mid_err, raw_err))
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2540,6 +3170,9 @@ def main():
         # 22: image-row sharding, the vis dumps and the sg_cuts hook
         spatial_launches, spatial_err, vis_launches, vis_err, cut_launches = phase22(
             dev, tmp, root, ckpt, serve, model, mid_out, card)
+        # 23: the image-row sharded train step, from phase 8's tree
+        st_launches, st_k1, (st_err2, st_err3, st_err4, st_err5) = phase23_spatial_train(
+            dev, tmp, root, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -2551,34 +3184,38 @@ def main():
              launches_by_path={"serve": main_path_launches, "dtu_scan": dtu_launches,
                                "tanks": tanks_launches, "ddp_train": ddp_launches["K1"],
                                "variants": variant_launches["K1"],
-                               "spatial_serve": spatial_launches},
+                               "spatial_serve": spatial_launches,
+                               "spatial_train_serve": st_k1},
              max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err,
                                   "spatial_serve": spatial_err}),
-        dict(K2, launches=k2_launches, max_abs_err=max(err2, vis_err), ms=sums["qk2"],
+        dict(K2, launches=k2_launches, max_abs_err=max(err2, vis_err, st_err2), ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"],
              launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"],
                               "variants": variant_launches["K2"], "vis_eta": vis_launches,
-                              "sg_cuts": cut_launches["K2"]},
-             max_abs_err_by_path={"train": err2, "vis_eta": vis_err}),
-        dict(K3, launches=k3_launches, max_abs_err=err3, ms=sums["qk3"],
+                              "sg_cuts": cut_launches["K2"], "spatial_train": st_launches["K2"]},
+             max_abs_err_by_path={"train": err2, "vis_eta": vis_err, "spatial_train": st_err2}),
+        dict(K3, launches=k3_launches, max_abs_err=max(err3, st_err3), ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"],
              launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"],
                               "variants": variant_launches["K3"],
-                              "sg_cuts": cut_launches["K3"]}),
-        dict(K4, launches=ft_launches["K4"], max_abs_err=err4, ms=ot_sums["qk4"],
+                              "sg_cuts": cut_launches["K3"], "spatial_train": st_launches["K3"]},
+             max_abs_err_by_path={"train": err3, "spatial_train": st_err3}),
+        dict(K4, launches=ft_launches["K4"], max_abs_err=max(err4, st_err4), ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
              library_ms=None, back_to_back_ms=ot_sums["k4"],
              launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"],
                               "variants": variant_launches["K4"],
-                              "sg_cuts": cut_launches["K4"]}),
-        dict(K5, launches=ft_launches["K5"], max_abs_err=err5, ms=ot_sums["qk5"],
+                              "sg_cuts": cut_launches["K4"], "spatial_train": st_launches["K4"]},
+             max_abs_err_by_path={"train": err4, "spatial_train": st_err4}),
+        dict(K5, launches=ft_launches["K5"], max_abs_err=max(err5, st_err5), ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
              library_ms=None, back_to_back_ms=ot_sums["k5"],
              launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"],
                               "variants": variant_launches["K5"],
-                              "sg_cuts": cut_launches["K5"]}),
+                              "sg_cuts": cut_launches["K5"], "spatial_train": st_launches["K5"]},
+             max_abs_err_by_path={"train": err5, "spatial_train": st_err5}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2592,4 +3229,6 @@ if __name__ == "__main__":
         sys.exit(gloo_rank(sys.argv[2]))
     if sys.argv[1:2] == [SPATIAL_RANK]:
         sys.exit(spatial_rank(sys.argv[2]))
+    if sys.argv[1:2] == [SPATIAL_TRAIN_RANK]:
+        sys.exit(spatial_train_rank(sys.argv[2]))
     sys.exit(main())

@@ -21,23 +21,25 @@ import torch.distributed as dist
 from mvster_tpu_torch.dist.mesh import world_size
 
 
-def _all_sum(x: torch.Tensor) -> torch.Tensor:
+def _all_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
 
 
 class AllSum(torch.autograd.Function):
-    """Sum over the ranks whose gradient is the sum of the ranks' gradients:
-    every rank's copy of the sum feeds its own loss."""
+    """Sum over the ranks of `group` (the default group: every rank) whose
+    gradient is the sum of those ranks' gradients: every rank's copy of the
+    sum feeds its own loss."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_sum(x)
+    def forward(ctx, x, group=None):
+        ctx.group = group
+        return _all_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_sum(g.contiguous())
+        return _all_sum(g.contiguous(), ctx.group), None
 
 
 class _GlobalMean(torch.autograd.Function):

@@ -1,9 +1,10 @@
-"""Image-row (H) sharded inference (counterpart of mvster_tpu.dist.spatial).
+"""Image-row (H) sharded inference and training (counterpart of mvster_tpu.dist.spatial).
 
-Plane-sweep inference at resolutions whose activations outgrow one device:
-the ranks of a data row share its images by bands of rows, and each rank
-runs the eval cascade on its band alone.  The JAX package lets GSPMD
-partition H over a second mesh axis; here the exchanges are written out:
+Plane-sweep inference and training at resolutions whose activations
+outgrow one device: the ranks of a data row share its images by bands of
+rows, and each rank runs the cascade on its band alone.  The JAX package
+lets GSPMD partition H over a second mesh axis; here the exchanges are
+written out:
 
   - every convolution taller than one row takes halo rows from the
     neighbouring bands before it runs (the count follows from its kernel,
@@ -26,18 +27,27 @@ stage 1 is 64 rows, and H must be a multiple of 64 * spatial.
 
 Collectives are all_reduce only (sums into zeroed slots, exact since
 x + 0 = x), since gloo takes nothing else on CUDA tensors; the ranks of
-one card therefore run over gloo.  The entry point is the function, under
-torchrun's environment:
+one card therefore run over gloo.  Each exchange is a sum over the
+spatial group (dist/reduce.AllSum), so its backward is one too: the
+gradient of the halo rows a rank read goes back into the rows of the
+neighbour they came from, and each rank keeps its own band's rows of the
+gathered sources' gradient, summed over the group.  In training the
+loss, BatchNorm's moments (sums over every rank) and the depth metrics
+(each image's sums over its bands) are the global batch's, and the
+parameters' gradients are averaged over every rank once the backward is
+done.  The entry points are the functions, under torchrun's environment:
 
   rank, world = dist.mesh.maybe_initialize_distributed(device, backend)
   groups = make_2d_groups(data, spatial)
   step = make_spatial_infer_step(model, groups)
   depth, conf = step(imgs, proj_matrices, depth_values)  # this data row's
+  train = make_spatial_train_step(model, optimizer, groups, loss_kwargs=...)
+  scalars, images = train(batch)  # this data row's batch; images its band
 
 Only the row-local configurations run: FPN4, Reg2d with ConvBnReLU3D
-blocks, any positional encoding, float32 or bfloat16.  ASFF, DCN, the
-attention blocks, Reg3d and the ConvNeXt pyramids raise.  The spatial
-train step is not ported.
+blocks, any positional encoding, float32 or bfloat16, with or without the
+mono branch.  ASFF, DCN, the attention blocks, Reg3d and the ConvNeXt
+pyramids raise.
 """
 
 from __future__ import annotations
@@ -52,6 +62,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvster_tpu_torch.dist.mesh import rank, world_size
+from mvster_tpu_torch.dist.reduce import AllSum
+from mvster_tpu_torch.dist.train_step import _collect_scalars_images, _forward_loss
+from mvster_tpu_torch.models.losses import mvs4net_loss
 
 # rows a band must hold a multiple of: FPN4's stride 8 times Reg2d's 8
 BAND_ALIGN = 64
@@ -106,18 +119,34 @@ class RowBand:
         """The band's first row in the image, for a band of `rows` rows."""
         return self.index * rows
 
+    def cut(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """The band's rows of a whole map x (rows along `dim`)."""
+        rows = x.shape[dim] // self.n
+        return x.narrow(dim, self.row0(rows), rows)
+
+    def check_height(self, h: int) -> None:
+        """Raise ValueError unless an image of h rows splits into bands that
+        each start at a multiple of the cascade's total stride."""
+        if h % (BAND_ALIGN * self.n):
+            raise ValueError(f"H = {h} must be a multiple of {BAND_ALIGN} x spatial "
+                             f"{self.n}: a band starts at a multiple of the cascade's "
+                             f"total stride ({BAND_ALIGN} rows)")
+
     def _sum(self, x: torch.Tensor) -> torch.Tensor:
-        if self.n > 1:
-            dist.all_reduce(x, group=self.group)
-        return x
+        """x summed over the spatial group; its gradient likewise summed."""
+        return AllSum.apply(x, self.group) if self.n > 1 else x
 
     def gather(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
-        """The whole map from every band's x, rows along `dim`."""
-        rows = x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] = rows * self.n
-        full = x.new_zeros(shape)
-        full.narrow(dim, self.index * rows, rows).copy_(x)
+        """The whole map from every band's x, rows along `dim`.  Each rank's
+        gradient of the whole map is summed over the group and each band
+        keeps its own rows."""
+        d = dim % x.dim()
+        rows = x.shape[d]
+
+        def zeros(bands):
+            return x.new_zeros((*x.shape[:d], bands * rows, *x.shape[d + 1:]))
+
+        full = torch.cat([zeros(self.index), x, zeros(self.n - 1 - self.index)], dim=d)
         return self._sum(full)
 
     def gather_sources(self, src: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -128,40 +157,43 @@ class RowBand:
     def halo(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
         """x with the `top` rows above the band and the `bottom` rows below
         it (zeros past the image's edges) -> (..., top + rows + bottom, W).
-        The halos travel in x's precision, or float32 for lower ones."""
+        The halos and their gradients travel in x's precision, or float32
+        for lower ones; the gradient of the rows a rank read from a
+        neighbour is summed back into that neighbour's rows."""
         rows = x.shape[-2]
         if max(top, bottom) > rows:
             raise ValueError(f"a halo of {max(top, bottom)} rows from bands of {rows}")
         if top == bottom == 0:
             return x
         dt = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
-        slots = x.new_zeros((self.n, *x.shape[:-2], top + bottom, x.shape[-1]), dtype=dt)
-        slots[self.index, ..., :top, :] = x[..., rows - top:, :]
-        slots[self.index, ..., top:, :] = x[..., :bottom, :]
-        self._sum(slots)
-        above = (slots[self.index - 1, ..., :top, :] if self.index > 0
-                 else slots.new_zeros((*x.shape[:-2], top, x.shape[-1])))
-        below = (slots[self.index + 1, ..., top:, :] if self.index < self.n - 1
-                 else slots.new_zeros((*x.shape[:-2], bottom, x.shape[-1])))
-        return torch.cat([above.to(x.dtype), x, below.to(x.dtype)], dim=-2)
+        # slot r holds band r's last `top` rows (the next band's halo above)
+        # and its first `bottom` rows (the previous band's halo below)
+        own = torch.cat([x[..., rows - top:, :], x[..., :bottom, :]], dim=-2).to(dt)
+        slots = self._sum(torch.stack([own if r == self.index else torch.zeros_like(own)
+                                       for r in range(self.n)]))
+        above = (slots[self.index - 1, ..., :top, :].to(x.dtype) if self.index > 0
+                 else x.new_zeros((*x.shape[:-2], top, x.shape[-1])))
+        below = (slots[self.index + 1, ..., top:, :].to(x.dtype) if self.index < self.n - 1
+                 else x.new_zeros((*x.shape[:-2], bottom, x.shape[-1])))
+        return torch.cat([above, x, below], dim=-2)
 
     def resize(self, x: torch.Tensor, out_rows: int, out_w: int) -> torch.Tensor:
         """Align-corners bilinear resize of the band's (..., rows, W) to
         (..., out_rows, out_w), the image's H growing by out_rows / rows:
         output row i of the image reads input row i * (Hin - 1) / (Hout - 1),
-        computed in float32 as F.interpolate computes it (and the blend in
-        float32 at least)."""
+        computed, as F.interpolate computes it, in float32, or in float64
+        for float64 maps (and the blend in float32 at least)."""
         rows, w = x.shape[-2:]
         h_in, h_out = rows * self.n, out_rows * self.n
         ct = torch.promote_types(x.dtype, torch.float32)
         xh = self.halo(x, 1, 1).to(ct)  # image rows row0 - 1 .. row0 + rows
         base = self.row0(rows) - 1
-        scale = np.float32(h_in - 1) / np.float32(h_out - 1)
+        real = np.float64 if ct == torch.float64 else np.float32
+        scale = real(h_in - 1) / real(h_out - 1)
         start = self.row0(out_rows)
-        src = torch.arange(start, start + out_rows, dtype=torch.float32,
-                           device=x.device) * float(scale)
+        src = torch.arange(start, start + out_rows, dtype=ct, device=x.device) * float(scale)
         i0 = torch.floor(src)
-        lam = (src - i0).to(ct)
+        lam = src - i0
         i0 = i0.long()
         i1 = torch.clamp(i0 + 1, max=h_in - 1)
         a = xh.index_select(-2, i0 - base)
@@ -260,14 +292,9 @@ def make_spatial_infer_step(model, groups: SpatialGroups):
     band = RowBand(groups)
 
     def step(imgs, proj_matrices, depth_values):
-        h = imgs.shape[2]
-        if h % (BAND_ALIGN * band.n):
-            raise ValueError(f"H = {h} must be a multiple of {BAND_ALIGN} x spatial "
-                             f"{band.n}: a band starts at a multiple of the cascade's "
-                             f"total stride ({BAND_ALIGN} rows)")
+        band.check_height(imgs.shape[2])
         dev = next(model.parameters()).device
-        rows = h // band.n
-        imgs = imgs[:, :, band.row0(rows):band.row0(rows) + rows].to(dev)
+        imgs = band.cut(imgs, 2).to(dev)
         proj_matrices = {k: v.to(dev) for k, v in proj_matrices.items()}
         was_training = model.training
         model.eval()
@@ -278,6 +305,66 @@ def make_spatial_infer_step(model, groups: SpatialGroups):
         finally:
             model.train(was_training)
         return out["depth"], out["photometric_confidence"]
+
+    return step
+
+
+def _average_gradients(module: nn.Module) -> None:
+    """Each parameter's gradient summed over every rank and divided by the
+    world size, in one all_reduce: the global batch's gradient, since each
+    rank holds the world size times its share (dist/reduce.py).  Written
+    out rather than through DDP, whose bucket reductions would interleave
+    with the backward's own all_reduces on the default group."""
+    world = world_size()
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    if world == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= world
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_spatial_train_step(model, optimizer, groups: SpatialGroups,
+                            loss_kwargs: dict | None = None):
+    """One train step over a (data x spatial) split of the ranks (the
+    counterpart of the JAX make_spatial_train_step): the batch split over
+    the data rows, each image's rows over the ranks of its data row.  The
+    parameters and optimizer state are the same on every rank; the loss,
+    BatchNorm's moments and the depth metrics are the global batch's (its
+    whole images'), and the gradients are summed over both axes.
+
+    Returns step(batch) -> (scalars, images): `batch` is this data row's,
+    whole (imgs (B, V, H, W, 3), proj_matrices, depth_values, and each
+    stage's depth and mask (B, Hs, Ws), as train/loop.device_batch makes
+    it), of which only the band's rows go to the device; the scalars are
+    the global batch's, the same on every rank, and the images this rank's
+    band (gather_rows assembles them)."""
+    check_row_local(model.config)
+    band = RowBand(groups)
+    loss_kwargs = dict(loss_kwargs or {})
+
+    def step(batch):
+        band.check_height(batch["imgs"].shape[2])
+        dev = next(model.parameters()).device
+        local = {"imgs": band.cut(batch["imgs"], 2).to(dev),
+                 "proj_matrices": {k: v.to(dev) for k, v in batch["proj_matrices"].items()},
+                 "depth_values": batch["depth_values"].to(dev),
+                 "depth": {k: band.cut(v).to(dev) for k, v in batch["depth"].items()},
+                 "mask": {k: band.cut(v).to(dev) for k, v in batch["mask"].items()}}
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with band.halo_convs(model):
+            loss, aux, outputs = _forward_loss(model, local, mvs4net_loss, loss_kwargs,
+                                               resize=band.resize,
+                                               gather_sources=band.gather_sources)
+            loss.backward()
+        result = _collect_scalars_images(loss, aux, outputs, local["imgs"], local["depth"],
+                                         local["mask"], band.group)
+        _average_gradients(model)
+        optimizer.step()
+        return result
 
     return step
 

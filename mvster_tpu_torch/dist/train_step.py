@@ -38,8 +38,18 @@ from mvster_tpu_torch.models.losses import mvs4net_loss
 from mvster_tpu_torch.train.metrics import depth_metrics
 
 
-def _collect_scalars_images(loss, aux, outputs, imgs, depth_gt_ms, mask_ms):
-    """The reference train_sample's scalar and image dicts, detached."""
+def _forward_loss(model, batch, loss_fn, loss_kwargs, **model_kwargs):
+    """The forward of `model` on `batch` and the loss: (loss, aux, outputs)."""
+    outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"],
+                    **model_kwargs)
+    loss, aux = loss_fn(outputs, batch["depth"], batch["mask"],
+                        depth_values=batch["depth_values"], **loss_kwargs)
+    return loss, aux, outputs
+
+
+def _collect_scalars_images(loss, aux, outputs, imgs, depth_gt_ms, mask_ms, group=None):
+    """The reference train_sample's scalar and image dicts, detached; the
+    depth metrics over whole images whose bands the ranks of `group` hold."""
     final_stage = f"stage{len(aux['stage_ot_loss'])}"
     scalars = {"loss": loss}
     for i in range(len(aux["stage_ot_loss"])):
@@ -51,7 +61,7 @@ def _collect_scalars_images(loss, aux, outputs, imgs, depth_gt_ms, mask_ms):
             scalars[k] = v
     depth = outputs["depth"]
     scalars.update(depth_metrics(depth, depth_gt_ms[final_stage],
-                                 mask_ms[final_stage] > 0.5))
+                                 mask_ms[final_stage] > 0.5, group))
     images = {
         "depth_est": depth * mask_ms[final_stage],
         "depth_est_nomask": depth,
@@ -94,9 +104,7 @@ def make_train_step(
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def forward_backward(mb, scale):
-        outputs = model(mb["imgs"], mb["proj_matrices"], mb["depth_values"])
-        loss, aux = loss_fn(outputs, mb["depth"], mb["mask"],
-                            depth_values=mb["depth_values"], **loss_kwargs)
+        loss, aux, outputs = _forward_loss(model, mb, loss_fn, loss_kwargs)
         (loss * scale).backward()
         return _collect_scalars_images(loss, aux, outputs, mb["imgs"],
                                        mb["depth"], mb["mask"])
@@ -137,9 +145,7 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable = mvs4net_loss,
     @torch.no_grad()
     def step(batch):
         model.eval()
-        outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss, aux = loss_fn(outputs, batch["depth"], batch["mask"],
-                            depth_values=batch["depth_values"], **loss_kwargs)
+        loss, aux, outputs = _forward_loss(model, batch, loss_fn, loss_kwargs)
         scalars, _ = _collect_scalars_images(loss, aux, outputs, batch["imgs"],
                                              batch["depth"], batch["mask"])
         return scalars

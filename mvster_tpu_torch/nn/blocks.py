@@ -100,22 +100,34 @@ class _ComputeDtype:
         bias = None if self.bias is None else self.bias.to(dt)
         return x.to(dt), self.weight.to(dt), bias
 
+    def _run(self, conv, x: torch.Tensor) -> torch.Tensor:
+        """conv(x, weight, bias) in the compute dtype.  On a CPU tensor a
+        bfloat16 conv sums the same bf16 values in float32 and rounds the
+        result once, as cuDNN's and XLA's bf16 convs do: PyTorch's CPU
+        bf16 3D convs return wrong values and gradients at small sizes (a
+        stride-2 conv's output and weight gradient, a transposed conv's
+        input gradient, where a level is a column or two wide)."""
+        x, w, b = self._cast(x)
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            return conv(x.float(), w.float(), None if b is None else b.float()).to(x.dtype)
+        return conv(x, w, b)
+
 
 class Conv2d(_ComputeDtype, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
+        return self._run(self._conv_forward, x)
 
 
 class Conv3d(_ComputeDtype, nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
+        return self._run(self._conv_forward, x)
 
 
 class ConvTranspose3d(_ComputeDtype, nn.ConvTranspose3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = self._cast(x)
-        return F.conv_transpose3d(x, w, b, self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+        return self._run(lambda x, w, b: F.conv_transpose3d(
+            x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation), x)
 
 
 class ConvBlock2d(nn.Module):
