@@ -83,7 +83,12 @@ Phases, one line each, any failure exits non-zero:
      the checkpoint predicts no depth on the plane; phase 18 scores);
      the seconds of the scan's forward, fusion and metric; then K1
      against plain at that forward's four stage shapes (104x144 to
-     832x1152, 4 sources), both attention modes, atol/rtol 1e-4
+     832x1152, 4 sources), both attention modes, atol/rtol 1e-4; then
+     save_depth's loop over the scan with infer_views' dispatch-ahead
+     against one model(...) call per chunk in sequence: the wall time of
+     each in turns, the card's busy share of each under torch.profiler,
+     and with cuDNN's deterministic algorithms every view's depth and
+     confidence bitwise equal
  18. fusion, card vs CPU: geometric_filter on the card and on the CPU
      over phase 17's scan, (a) the plane's analytic depth maps at
      confidence 1 and (b) the predicted maps: masks equal but at pixels
@@ -187,6 +192,29 @@ Phases, one line each, any failure exits non-zero:
      four raw stages (batch 1; row0 = half the rows, whole sources, 4
      sources) against plain (K2 bitwise, K3 at phase 7's tolerance), and
      K4/K5 at those bands' pixels (phase 12's tolerances)
+ 24. every variant of tests/_torch_parity.BAND_VARIANTS (reg3d, cam, dcam,
+     pam, pdam, asff, convnext, convnext4, dcn) through both spatial steps
+     as gloo ranks on the one card (`--spatial-variant-rank`, four
+     processes started once, one process's references computed on the card
+     while they run), seeded weights at dtu_default's widths, TF32 off:
+     (a) serving at 512x640, 5 views, batch 1 as spatial 2, and cam, dcam,
+     pdam and dcn as spatial 4 too: float32 with every count at 0 just
+     before (4 K1 launches a rank), held to one process's float32 forward
+     by F32_AGREE (windows and decisive depths), and float64 (K1's plain
+     version) held to one process's float64 forward by the stage
+     comparator and every stage's attention within F64_ATTN_ATOL; each
+     rank's peak memory against one process's; (b) the DTU-mid train cell
+     (phase 8's tree, batch 2, mono on) as spatial 2, one SGD step:
+     float64 (plain warp, xla) within relative L2 1e-7 of one process's
+     float64 step, float32 --ot_backend pallas against one process's
+     float32 step with the ranks' BatchNorm arithmetic (scalars at rtol
+     1e-5, VARIANT_WINDOW_RTOL downstream of a window; every gradient
+     finite, their median distance from float64 within F32_NOISE_RATIO
+     times one process's; the pixels whose hypothesis
+     window moved from the float64 step, counted), 16 K2, 16 K3, 4 K4 and
+     4 K5 launches a rank, ranks bitwise equal; (c) K1 on the last of 2
+     and of 4 bands, and K2-K5 on the last of 2, of the DTU-mid stages
+     against plain
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -200,7 +228,9 @@ spatial_serve (K1, over the ranks of its three runs; its band error
 under max_abs_err_by_path), vis_eta (K2; its error beside train's under
 max_abs_err_by_path) and sg_cuts (K2-K5)), and phase 23's:
 spatial_train (K2-K5 over the ranks of its runs; their band errors under
-max_abs_err_by_path) and spatial_train_serve (K1, (c)), and
+max_abs_err_by_path) and spatial_train_serve (K1, (c)), and phase 24's:
+spatial_variants_serve (K1) and spatial_variants_train (K2-K5), over the
+ranks, their band errors under max_abs_err_by_path, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -225,6 +255,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from _torch_parity import (  # noqa: E402
     FUSION_EDGE,
     GRAD_NOISE,
+    BAND_VARIANTS,
     VARIANTS,
     assert_bf16_close,
     assert_masks_agree,
@@ -1013,6 +1044,18 @@ def plain_warp():
         warp_vjp.grid_sample_zeros_vjp = kernel
 
 
+@contextlib.contextmanager
+def plain_k1():
+    """Within: the eval cost volume takes K1's plain version, which takes any
+    dtype: the float64 reference forward."""
+    kernel = warp_correlate.fused_cost_volume
+    warp_correlate.fused_cost_volume = warp_correlate.fused_cost_volume_plain
+    try:
+        yield
+    finally:
+        warp_correlate.fused_cost_volume = kernel
+
+
 def dtu_batch(root, dev):
     """The first batch of the DTU tree's training loader, on the device."""
     from mvster_tpu_torch.data import MVSLoader
@@ -1356,6 +1399,131 @@ def k2_on_cascade(dev, h, w, nsrc, seed):
     return err
 
 
+def _sequential_views(model, samples, eval_batch=1, return_debug=False):
+    """infer_views' views from one model(...) call per chunk, each waited on
+    before the next is launched: the reference of phase 17's dispatch-ahead."""
+    device = next(model.parameters()).device
+    samples = list(samples)
+    for start in range(0, len(samples), eval_batch):
+        chunk = samples[start:start + eval_batch]
+        padded = chunk + [chunk[-1]] * (eval_batch - len(chunk))
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(*model_inputs({
+                "imgs": np.stack([s["imgs"] for s in padded]),
+                "proj_matrices": {k: np.stack([s["proj_matrices"][k] for s in padded])
+                                  for k in padded[0]["proj_matrices"]},
+                "depth_values": np.stack([s["depth_values"] for s in padded])}, device))
+            depth = out["depth"].cpu().numpy()
+            conf = out["photometric_confidence"].cpu().numpy()
+        seconds = time.perf_counter() - t0
+        for i, sample in enumerate(chunk):
+            yield sample, {"depth": depth[i:i + 1], "confidence": conf[i:i + 1],
+                           "seconds": seconds, "chunk_views": len(chunk)}
+
+
+def _busy_share(prof, wall_s):
+    """The share of wall_s in which the card ran a kernel or a copy: the union
+    of the profile's device intervals over the wall time."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        raise AssertionError("the profile holds no device activity")
+    return busy / 1e6 / wall_s
+
+
+def phase17_dispatch_ahead(dev, tmp, argv, scan, card):
+    """tools.test.save_depth over phase 17's scan, its infer_views (the next
+    chunk launched before the current one's views are written) against the
+    same loop with one model(...) call per chunk in sequence: the loop's
+    wall time of each, in turns; the card's busy share over each loop under
+    torch.profiler; and, with cuDNN's deterministic algorithms, each view's
+    depth and confidence bitwise equal.  Under cuDNN's default algorithms
+    the eval forward is not bitwise reproducible from call to call on the
+    card (measured on an H100: attention up to 3.8e-6 apart, a near-tied
+    depth flipped; the FPN's features reproducible, so Reg2d's 3D and
+    transposed convs), whatever the loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvster_tpu_torch.tools import test as test_tool
+    from mvster_tpu_torch.tools.cli import build_test_parser, model_config_from_args
+
+    args = build_test_parser().parse_args(argv)
+    config = model_config_from_args(args)
+    model = MVS4Net(config)
+    model.load_state_dict(load_reference_ckpt(args.loadckpt, config), strict=True)
+    model.to(dev).eval()
+    loops = {"ahead": test_tool.infer_views, "sequential": _sequential_views}
+    views, walls, busy = {}, {k: [] for k in loops}, {}
+
+    def run(kind, i, profiled=False, timed=False):
+        got = []
+
+        def capture(*a, **k):
+            for sample, res in loops[kind](*a, **k):
+                got.append((res["depth"].copy(), res["confidence"].copy()))
+                yield sample, res
+
+        args.outdir = os.path.join(tmp, f"dtu_loop_{kind}_{i}")
+        test_tool.infer_views = capture
+        try:
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if profiled else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                test_tool.save_depth(args, model, [scan])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            test_tool.infer_views = loops["ahead"]
+        views[(kind, i)] = got
+        if profiled:
+            busy[kind] = _busy_share(prof, wall)
+        if timed:
+            walls[kind].append(wall)
+
+    for i, kind in enumerate(("sequential", "ahead", "ahead", "sequential")):
+        run(kind, i, timed=True)
+    for kind in loops:
+        run(kind, "profiled", profiled=True)
+    views.clear()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in loops:
+            run(kind, "deterministic")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def max_diff(a, b):
+        return max(float(np.abs(x - y).max()) for va, vb in zip(a, b) for x, y in zip(va, vb))
+
+    if any(len(got) != DTU_VIEWS for got in views.values()):
+        raise AssertionError(f"views {[len(got) for got in views.values()]}")
+    first = views[("sequential", "deterministic")]
+    diffs = {f"{kind} {i}": max_diff(got, first) for (kind, i), got in views.items()}
+    if any(diffs.values()):
+        raise AssertionError(f"depth or confidence max|d| from the first sequential loop's, "
+                             f"by loop (cuDNN deterministic): {diffs}")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[17 dispatch-ahead] save_depth over the scan ({DTU_VIEWS} views at "
+        f"{SERVE_H}x{SERVE_W}, eval_batch {args.eval_batch}): with cuDNN's deterministic "
+        f"algorithms every view's depth and confidence bitwise those of one model(...) "
+        f"call per chunk in sequence; wall s "
+        f"(host clock, in turns sequential, ahead, ahead, sequential): dispatch-ahead "
+        + " / ".join(f"{w:.3f}" for w in walls["ahead"]) + ", sequential "
+        + " / ".join(f"{w:.3f}" for w in walls["sequential"])
+        + f"; the card's busy share of the loop (torch.profiler, the union of its kernels "
+        f"and copies over the wall time, a further run of each): dispatch-ahead "
+        f"{busy['ahead']:.2%}, sequential {busy['sequential']:.2%} | {card}")
+    return walls, busy
+
+
 def phase17_dtu_scan(dev, tmp, ckpt, card):
     """The DTU serving path end to end through tools.test.main: a synthetic
     7-view scan at DTU's 1200x1600, read at 832x1152, filtered and
@@ -1415,6 +1583,7 @@ def phase17_dtu_scan(dev, tmp, ckpt, card):
         f"K1 vs plain at this forward's stages ({SERVE_H // 8}x{SERVE_W // 8} to "
         f"{SERVE_H}x{SERVE_W}, 4 sources), both attention modes: max|d| {err:.3e} "
         f"(atol=rtol={KERNEL_TOL}) | {card}")
+    phase17_dispatch_ahead(dev, tmp, argv, scan, card)
     return k1, err, dict(root=root, outdir=outdir, gt_dir=gt_dir, scan=scan, times=times)
 
 
@@ -2522,10 +2691,11 @@ def _spatial_train_state():
     return {k: v.clone() for k, v in build_model(SPATIAL_SEED, mono=True).state_dict().items()}
 
 
-def _train_model(state, dtype, dev):
-    """dtu_default() with `state`: float32, float64, or bfloat16 compute."""
+def _train_model(state, dtype, dev, **overrides):
+    """dtu_default(**overrides) with `state`: float32, float64, or bfloat16
+    compute."""
     model = MVS4Net(MVS4NetConfig.dtu_default(
-        **({"compute_dtype": "bfloat16"} if dtype == BF16 else {})))
+        **overrides, **({"compute_dtype": "bfloat16"} if dtype == BF16 else {})))
     model.load_state_dict(state, strict=True)
     return model.to(dev, F64 if dtype == F64 else torch.float32)
 
@@ -2555,18 +2725,22 @@ def flax_moments():
         blocks._FlaxStats.forward = forward
 
 
-def _spatial_train_batches(root):
-    """The numpy batches: the DTU tree's first training batch (DTU-mid,
-    batch 2) and a synthetic 1152x1600 sample with ground truth (batch 1)."""
+def _mid_batch(root):
+    """The DTU tree's first training batch (DTU-mid, batch 2), numpy."""
     from mvster_tpu_torch.data import MVSLoader
     from mvster_tpu_torch.data.dtu import DTUDataset
 
     ds = DTUDataset(root, f"{root}/train.txt", "train", NVIEWS, 1.06, seed=1)
     mid = next(iter(MVSLoader(ds, BATCH, prefetch=0)))
-    mid = {k: v for k, v in mid.items() if not isinstance(v, (list, str))}
+    return {k: v for k, v in mid.items() if not isinstance(v, (list, str))}
+
+
+def _spatial_train_batches(root):
+    """The numpy batches: _mid_batch and a synthetic 1152x1600 sample with
+    ground truth (batch 1)."""
     raw = synthetic_sample(SPATIAL_SEED, batch=1, nviews=NVIEWS, h=RAW_H, w=RAW_W,
                            with_gt=True)
-    return {"mid": mid, "raw": raw}
+    return {"mid": _mid_batch(root), "raw": raw}
 
 
 def _serve_band(model, groups, batch, dev):
@@ -2670,22 +2844,25 @@ def spatial_train_rank(tmp):
     return 0
 
 
-def _single_train_step(state, batch, backend, dev, dtype=None, timed=0, moments=False):
+def _single_train_step(state, batch, backend, dev, dtype=None, timed=0, moments=False,
+                       overrides=None, hypos=False):
     """One process's SGD step of the same weights on the whole batch (numpy),
     float32, float64 (the plain warp) or bfloat16 compute, with its
-    BatchNorm under flax_moments if `moments`: the first step's scalars and
-    gradients, the peak device memory above what was allocated before, and
-    the host ms of the first step and of `timed` more."""
+    BatchNorm under flax_moments if `moments`, of dtu_default(**overrides):
+    the first step's scalars and gradients (with `hypos`, each stage's
+    hypotheses too), the peak device memory above what was allocated
+    before, and the host ms of the first step and of `timed` more."""
     b = {k: ({s: x.to(dev) for s, x in v.items()} if isinstance(v, dict) else v.to(dev))
          for k, v in _take(batch, slice(None), F64 if dtype == F64 else None).items()}
-    model = _train_model(state, dtype, dev)
+    model = _train_model(state, dtype, dev, **(overrides or {}))
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=DDP_LR),
                            loss_kwargs=dict(LOSS_KW, ot_backend=backend))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    ms = []
+    ms, outs = [], []
+    hook = model.register_forward_hook(lambda mod, args, out: outs.append(_stage_hypos(out)))
     with contextlib.ExitStack() as stack:
         if dtype == F64:
             stack.enter_context(plain_warp())
@@ -2697,9 +2874,12 @@ def _single_train_step(state, batch, backend, dev, dtype=None, timed=0, moments=
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             if i == 0:
+                hook.remove()
                 res = dict(scalars={k: float(v) for k, v in scalars.items()},
                            grads={k: p.grad.double().cpu().numpy()
                                   for k, p in model.named_parameters()})
+                if hypos:
+                    res["hypos"] = [h.cpu().numpy() for h in outs[0]]
     res.update(ms=ms, peak=torch.cuda.max_memory_allocated(dev) - base)
     del model, step, b
     torch.cuda.empty_cache()
@@ -2803,9 +2983,9 @@ def _check_spatial_grads(got, exact, ref, ref_exact, one, what):
     return worst, medians
 
 
-def _check_scalars(got, want, dtype, what):
+def _check_scalars(got, want, dtype, what, window_rtol=WINDOW_RTOL):
     """A run's scalars against one process's: float64 at rtol 1e-6; float32
-    at 1e-5, WINDOW_RTOL for WINDOW_SCALARS, the pixel fractions at atol
+    at 1e-5, window_rtol for WINDOW_SCALARS, the pixel fractions at atol
     PIXEL_ATOL more; bf16 the loss at BF16_LOSS_RTOL and each stage loss at
     BF16_STAGE_RTOL.  Returns the worst relative difference and its key, and
     the keys that took the pixel fractions' atol."""
@@ -2817,7 +2997,7 @@ def _check_scalars(got, want, dtype, what):
         if dtype == BF16:
             rtol = BF16_LOSS_RTOL if key == "loss" else BF16_STAGE_RTOL
         else:
-            rtol = 1e-6 if dtype == F64 else WINDOW_RTOL if key in WINDOW_SCALARS else 1e-5
+            rtol = 1e-6 if dtype == F64 else window_rtol if key in WINDOW_SCALARS else 1e-5
         if diff > rtol * abs(v) + 1e-7:
             # a pixel fraction: a value within float32 rounding of its
             # threshold lands on either side
@@ -2828,6 +3008,39 @@ def _check_scalars(got, want, dtype, what):
     if bad:
         raise AssertionError(f"{what}: " + "; ".join(bad))
     return worst, flips
+
+
+def _stage_hypos(out):
+    """Each stage's hypotheses (B, D, H, W) of a forward's outputs."""
+    return [out[f"stage{s}"]["hypo_depth"].detach() for s in range(1, 5)]
+
+
+def _moved_windows(hypos, exact):
+    """Pixels a stage whose hypothesis window differs (rtol 1e-5) from the
+    float64 step's."""
+    return [int((~np.all(np.isclose(h, e, rtol=1e-5), axis=1)).sum())
+            for h, e in zip(hypos, exact)]
+
+
+def _f32_grads_sane(got, exact, ref, ref_exact, what):
+    """Phase 24's float32 gradients (`got`; `exact` its split's float64
+    step; `ref` one process's float32 step with the ranks' BatchNorm
+    arithmetic, `ref_exact` one process's float64 step): every tensor
+    finite, and the median over the tensors of their relative L2 distance
+    from float64 within F32_NOISE_RATIO times one process's.  Returns the
+    worst (e_sp, key), (e_ref, key), and both medians."""
+    e_sp, e_ref = {}, {}
+    for key, g_e in ref_exact.items():
+        if not np.isfinite(got[key]).all():
+            raise AssertionError(f"{what} {key}: non-finite gradient")
+        if np.linalg.norm(g_e) >= GRAD_NOISE:
+            e_sp[key], e_ref[key] = relative_l2(got[key], exact[key]), relative_l2(ref[key], g_e)
+    worst = max((v, k) for k, v in e_sp.items()), max((v, k) for k, v in e_ref.items())
+    medians = float(np.median(list(e_sp.values()))), float(np.median(list(e_ref.values())))
+    if medians[0] > F32_NOISE_RATIO * medians[1]:
+        raise AssertionError(f"{what}: gradients' median relative L2 from float64 "
+                             f"{medians[0]:.2e}, one process's {medians[1]:.2e}")
+    return worst, medians
 
 
 def _f64_grads_close(got, want, what):
@@ -3035,6 +3248,371 @@ def phase23_spatial_train(dev, tmp, root, card):
         max(a, b) for a, b in zip(mid_err, raw_err))
 
 
+SPATIAL_VARIANT_RANK = "--spatial-variant-rank"
+# phase 24: the variants whose image-row sharding takes more than row-local
+# layers, and those also run in 4 bands, where a halo (PDAM's 7x7x7 gate at
+# Reg2d's deepest level: 2 rows a band at stage 1), a pool (CAM, DCAM) or a
+# tap (DCN) reaches past the neighbouring band
+VARIANT_SPAN4 = ("cam", "dcam", "pdam", "dcn")
+VARIANT_SEED = 240
+# (a) float64 (K1's plain version) on the bands against one process's:
+# every stage's attention within this (measured on an H100 at DTU-mid:
+# 3.3e-12), besides the stage comparator
+F64_ATTN_ATOL = 1e-9
+# (a) float32 (K1): the stage comparator does not hold two float32 forwards
+# that round differently at these widths, one process's against its own
+# float64 forward included (measured: CAM 1935 stage-4 attention values
+# past its atol; DCN's moved windows leave 71.8% of stage 2 to compare, its
+# floor 90%), since CAM's and DCAM's pools couple every pixel and a moved
+# window reaches past the comparator's 36 pixels.  So float32 is held by
+# what a moved window leaves alone: each stage's hypothesis windows agree
+# with one process's float32 forward at F32_AGREE of the pixels (measured:
+# 99.80% at worst), and the final depth of each stage at F32_AGREE of the
+# pixels where one process's top two probabilities differ by more than
+# 0.05 (the comparator's decisive pixels)
+F32_AGREE = 0.99
+# (b) the float64 steps hold every scalar and gradient (within 1e-6 and
+# 1e-7 of one process's).  In float32 a near-tied argmax moves a later
+# stage's hypothesis window at some pixels between a step and its float64
+# one, one process's as much as the bands' (measured on an H100 at
+# DTU-mid: Reg3d's one process 16, 1136 and 13230 pixels at stages 2-4),
+# and a moved window moves that stage's loss and every gradient it reaches
+# by more than rounding does (PAM's stage-2 tensors 4.5e-2 to 1.0e-1 from
+# float64, one process's 4e-3 to 7e-3); a band's convs also round another
+# way than the whole image's (PDAM's stage-1 regulariser, which no window
+# reaches, 1.1e-2 from float64 against one process's 6e-5), and ASFF's
+# float32 step lies far from float64 in one process too (a median of
+# 8.1e-2 over the tensors; 1.28 at `asff.3.weight_level_1.bn.bias` on the
+# bands).  So phase 23's per-tensor rule does not hold here: the float32
+# scalars downstream of a window (WINDOW_SCALARS) are held at ten times
+# phase 23's rtol (measured: Reg3d's s3_c_loss 1.1e-4 apart, PAM's
+# s2_c_loss 8.4e-5), and the gradients by their median distance from
+# float64, within F32_NOISE_RATIO times one process's
+VARIANT_WINDOW_RTOL = 1e-3
+
+
+def _variant_state(name):
+    """phase 4's kind of seeded weights of dtu_default() with the mono branch
+    on and the variant's override (the train runs' weights)."""
+    return build_model(VARIANT_SEED, mono=True, **BAND_VARIANTS[name]).state_dict()
+
+
+def _serve_inputs(sample, dtype):
+    imgs, projs, dv = model_inputs(sample, "cpu")  # the step moves the band's rows alone
+    return imgs.to(dtype), {k: v.to(dtype) for k, v in projs.items()}, dv.to(dtype)
+
+
+def _band_serve(name, n, sample, dev, rank):
+    """One rank's spatial-n serve of a variant through make_spatial_infer_step:
+    float32 with every count at 0 just before (its launches, and its peak
+    memory above what was allocated before the model), then float64 with the
+    plain cost volume; (rank 0) each forward's stage outputs (caught by a
+    hook on the model), gathered."""
+    from mvster_tpu_torch.dist import spatial
+
+    groups = spatial.make_2d_groups(1, n)
+    res = dict(band=groups.band)
+    for dtype in (torch.float32, F64):
+        base = torch.cuda.memory_allocated(dev)
+        model = build_model(VARIANT_SEED, **BAND_VARIANTS[name]).to(dev, dtype)
+        step = spatial.make_spatial_infer_step(model, groups)
+        outs = []
+        hook = model.register_forward_hook(lambda mod, args, out: outs.append(out))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        try:
+            with plain_k1() if dtype == F64 else contextlib.nullcontext():
+                step(*_serve_inputs(sample, dtype))
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        if dtype == torch.float32:
+            res.update(launches=_launch_counts(),
+                       peak=torch.cuda.max_memory_allocated(dev) - base)
+        (out,) = outs
+        gathered = {f"stage{s}": {k: spatial.gather_rows(out[f"stage{s}"][k], groups).cpu()
+                                  .numpy() for k in STAGE_KEYS} for s in range(1, 5)}
+        if rank == 0:
+            res["f64" if dtype == F64 else "f32"] = gathered
+        del model, step, out, outs
+        torch.cuda.empty_cache()
+    return res
+
+
+def _float32_agreement(ref, out, sample, what):
+    """Phase 24 (a)'s float32 rule (F32_AGREE): per stage, the share of
+    pixels whose hypothesis window agrees with one process's (rtol 1e-5)
+    and the share of one process's decisive pixels whose depth agrees (the
+    comparator's rtol 1e-3, atol 1e-2); every value finite and stage 1's
+    depth inside [dmin, dmax].  Returns the (window, depth) shares."""
+    dmin, dmax = sample["depth_values"][0, 0], sample["depth_values"][0, -1]
+    d1 = out["stage1"]["depth"]
+    if d1.min() < dmin * (1 - 1e-6) or d1.max() > dmax * (1 + 1e-6):
+        raise AssertionError(f"{what}: stage-1 depth [{d1.min()}, {d1.max()}] outside "
+                             f"[{dmin}, {dmax}]")
+    shares = []
+    for s in range(1, 5):
+        r, o = ref[f"stage{s}"], out[f"stage{s}"]
+        if not all(np.isfinite(v).all() for v in o.values()):
+            raise AssertionError(f"{what} stage{s}: non-finite outputs")
+        agree = np.all(np.isclose(o["hypo_depth"], r["hypo_depth"], rtol=1e-5), axis=1).mean()
+        top2 = np.sort(r["attn_weight"], axis=1)[:, -2:]
+        decisive = (top2[:, 1] - top2[:, 0]) > 0.05
+        same = np.isclose(o["depth"], r["depth"], rtol=1e-3, atol=1e-2)[decisive].mean()
+        if agree < F32_AGREE or same < F32_AGREE:
+            raise AssertionError(f"{what} stage{s}: windows agree at {agree:.4%}, decisive "
+                                 f"depths at {same:.4%} (at least {F32_AGREE:.0%})")
+        shares.append((float(agree), float(same)))
+    return shares
+
+
+def _band_train(name, dtype, batch, dev, rank):
+    """One rank's spatial-2 SGD step of a variant: float64 (plain warp, xla)
+    or float32 (--ot_backend pallas), with every count at 0 just before;
+    scalars, a digest of the parameters and running statistics after it,
+    and (rank 0) the gradients."""
+    import hashlib
+
+    from mvster_tpu_torch.dist import spatial
+
+    backend = "xla" if dtype == F64 else "pallas"
+    groups = spatial.make_2d_groups(1, 2)
+    model = _train_model(_variant_state(name), dtype, dev, **BAND_VARIANTS[name])
+    step = spatial.make_spatial_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=DDP_LR), groups,
+        loss_kwargs=dict(LOSS_KW, ot_backend=backend))
+    outs = []
+    hook = model.register_forward_hook(lambda mod, args, out: outs.append(_stage_hypos(out)))
+    _reset_counts()
+    try:
+        with plain_warp() if dtype == F64 else contextlib.nullcontext():
+            scalars, images = step(_take(batch, slice(None), dtype))
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    hypos = [spatial.gather_rows(h, groups).cpu().numpy() for h in outs[0]]
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.cpu().numpy().tobytes())
+    res = dict(launches=_launch_counts(), scalars={k: float(v) for k, v in scalars.items()},
+               after=digest.hexdigest(),
+               finite=bool(all(torch.isfinite(v).all() for v in images.values())))
+    if rank == 0:
+        res["grads"] = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()}
+        res["hypos"] = hypos
+    del model, step, images, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _variant_pair(name):
+    """The pair of ranks (0-1 or 2-3) that runs a variant's spatial-2 runs."""
+    return list(BAND_VARIANTS).index(name) % 2
+
+
+def spatial_variant_rank(tmp):
+    """Phase 24, one of four processes on the one card over gloo: the
+    VARIANT_SPAN4 serves as spatial 4 in a world of 4, then, ranks 0-1 and
+    2-3 each in a world of their own at the same time, every other
+    variant's spatial-2 serve, float64 and float32 train steps (pair
+    _variant_pair).  Results to <tmp>/spatial_variant_rank<r>.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mvster_tpu_torch.dist.mesh import maybe_initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))  # as phase 23's ranks
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(tmp, "spatial_variant_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    rank, _ = maybe_initialize_distributed(dev, backend="gloo")
+    out = {"serve4": {name: _band_serve(name, 4, inputs["sample"], dev, rank)
+                      for name in VARIANT_SPAN4}}
+    dist.destroy_process_group()
+    pair, local = divmod(rank, 2)
+    os.environ.update(WORLD_SIZE="2", RANK=str(local), MASTER_PORT=str(inputs["ports"][pair]))
+    maybe_initialize_distributed(dev, backend="gloo")
+    names = [name for name in BAND_VARIANTS if _variant_pair(name) == pair]
+    out["serve2"] = {name: _band_serve(name, 2, inputs["sample"], dev, local) for name in names}
+    for dtype, kind in ((F64, "f64"), (None, "pallas")):
+        out[kind] = {name: _band_train(name, dtype, inputs["mid"], dev, local)
+                     for name in names}
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"spatial_variant_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def phase24_spatial_variants(dev, tmp, root, card):
+    """Every variant of BAND_VARIANTS through both spatial steps as gloo
+    ranks on the one card, against one process's card forward and steps,
+    which run while the ranks do: (a) serve at DTU-mid as spatial 2 (and
+    VARIANT_SPAN4 as spatial 4) by the stage comparator, K1 on the last
+    band against plain; (b) the DTU-mid train cell as spatial 2, float64
+    and float32 (pallas).  Returns the launches over the ranks of (a) and
+    (b), and the band errors of K1 and K2-K5."""
+    import pickle
+    import socket
+
+    t0 = time.perf_counter()
+    sample = synthetic_sample(24, nviews=NVIEWS, h=H, w=W)
+    mid = _mid_batch(root)
+    ports = []
+    for _ in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    with open(os.path.join(tmp, "spatial_variant_inputs.pkl"), "wb") as f:
+        pickle.dump(dict(sample=sample, mid=mid, ports=ports[1:]), f)
+    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(ports[0]))
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen([sys.executable, "-m", "chip_smoke", SPATIAL_VARIANT_RANK, tmp],
+                              cwd=ROOT, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    logs = []
+    try:
+        # one process's references on the card while the ranks run
+        single = {}
+        for name, overrides in BAND_VARIANTS.items():
+            outs = {}
+            for dtype in (torch.float32, F64):
+                base = torch.cuda.memory_allocated(dev)
+                model = build_model(VARIANT_SEED, **overrides).to(dev, dtype)
+                imgs, projs, dv = _serve_inputs(sample, dtype)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                with torch.inference_mode(), (
+                        plain_k1() if dtype == F64 else contextlib.nullcontext()):
+                    out = to_numpy_tree(model(imgs.to(dev), {k: v.to(dev) for k, v in
+                                                             projs.items()}, dv.to(dev)))
+                if dtype == torch.float32:
+                    peak = torch.cuda.max_memory_allocated(dev) - base
+                outs["f64" if dtype == F64 else "f32"] = {
+                    f"stage{s}": {k: out[f"stage{s}"][k] for k in STAGE_KEYS}
+                    for s in range(1, 5)}
+                del model, out
+            state = _variant_state(name)
+            single[name] = dict(
+                out=outs["f32"], out64=outs["f64"], peak=peak,
+                f64=_single_train_step(state, mid, "xla", dev, F64, overrides=overrides,
+                                       hypos=True),
+                f32=_single_train_step(state, mid, "pallas", dev, moments=True,
+                                       overrides=overrides, hypos=True))
+        single_s = time.perf_counter() - t0
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"spatial variant rank {r} exited {p.returncode}:\n"
+                                 f"{logs[r][-3000:] if logs else ''}")
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"spatial_variant_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    ranks_s = time.perf_counter() - t0
+
+    serve_totals = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    train_totals = dict(serve_totals)
+    for name in BAND_VARIANTS:
+        ref = single[name]
+        parts = []
+        first = 2 * _variant_pair(name)
+        for key, members in (("serve2", range(first, first + 2)), ("serve4", range(4))):
+            if name not in ranks[members[0]][key]:
+                continue
+            runs, n = [ranks[r][key][name] for r in members], len(members)
+            for r, run in enumerate(runs):
+                if run["band"] != r or run["launches"] != dict(K1=4, K2=0, K3=0, K4=0, K5=0):
+                    raise AssertionError(f"{name} spatial {n} rank {r}: band {run['band']}, "
+                                         f"launches {run['launches']}")
+                for k in serve_totals:
+                    serve_totals[k] += run["launches"][k]
+            band64 = dict(runs[0]["f64"], depth=runs[0]["f64"]["stage4"]["depth"])
+            assert_stage_close(dict(ref["out64"], depth=ref["out64"]["stage4"]["depth"]),
+                               band64)
+            worst64 = max(np.abs(band64[f"stage{s}"]["attn_weight"]
+                                 - ref["out64"][f"stage{s}"]["attn_weight"]).max()
+                          for s in range(1, 5))
+            if worst64 > F64_ATTN_ATOL:
+                raise AssertionError(f"{name} spatial {n}: float64 attention max|d| {worst64}")
+            agree = _float32_agreement(ref["out"], runs[0]["f32"], sample, f"{name} spatial {n}")
+            parts.append(
+                f"spatial {n}: float64 attention max|d| {worst64:.3e}; float32 windows agree "
+                f"at {min(a for a, _ in agree):.4%} (worst stage), decisive depths at "
+                f"{min(d for _, d in agree):.4%}; peak a rank "
+                + " / ".join(f"{run['peak'] / 2**20:.1f}" for run in runs) + " MiB")
+        log(f"[24a spatial serve] {name}: dtu_default(mono=False, {BAND_VARIANTS[name]}) at "
+            f"{H}x{W}, {NVIEWS} views, batch 1, 4 K1 launches a rank; float64 (K1's plain "
+            f"version) matches one process's float64 card forward by the stage comparator and "
+            f"within {F64_ATTN_ATOL}; " + " | ".join(parts)
+            + f"; one process {ref['peak'] / 2**20:.1f} MiB | {card}")
+
+    for name in BAND_VARIANTS:
+        ref = single[name]
+        pair = (2 * _variant_pair(name), 2 * _variant_pair(name) + 1)
+        f64 = [ranks[r]["f64"][name] for r in pair]
+        f32 = [ranks[r]["pallas"][name] for r in pair]
+        k23 = 4 * (NVIEWS - 1)
+        for kind, runs, want in (("f64", f64, dict(K1=0, K2=0, K3=0, K4=0, K5=0)),
+                                 ("pallas", f32, dict(K1=0, K2=k23, K3=k23, K4=4, K5=4))):
+            for r, run in enumerate(runs):
+                if run["launches"] != want or not run["finite"]:
+                    raise AssertionError(f"{name} {kind} rank {r}: launches "
+                                         f"{run['launches']}, finite {run['finite']}")
+                if run["after"] != runs[0]["after"] or run["scalars"] != runs[0]["scalars"]:
+                    raise AssertionError(f"{name} {kind}: rank {r}'s parameters, running "
+                                         f"statistics or scalars differ from rank 0's")
+                for k in train_totals:
+                    train_totals[k] += run["launches"][k]
+        worst64 = _f64_grads_close(f64[0]["grads"], ref["f64"]["grads"], f"{name} f64")
+        scalar64, _ = _check_scalars(f64[0]["scalars"], ref["f64"]["scalars"], F64,
+                                     f"{name} f64")
+        scalar32, flips = _check_scalars(f32[0]["scalars"], ref["f32"]["scalars"], None,
+                                         f"{name} pallas", window_rtol=VARIANT_WINDOW_RTOL)
+        moved = _moved_windows(f32[0]["hypos"], f64[0]["hypos"])
+        moved_one = _moved_windows(ref["f32"]["hypos"], ref["f64"]["hypos"])
+        (worst, worst_one), medians = _f32_grads_sane(
+            f32[0]["grads"], f64[0]["grads"], ref["f32"]["grads"], ref["f64"]["grads"],
+            f"{name} pallas")
+        log(f"[24b spatial train] {name}: dtu_default(mono on, {BAND_VARIANTS[name]}) at "
+            f"{H}x{W}, {NVIEWS} views, batch {BATCH} as spatial 2 (bands of {H // 2} rows), "
+            f"one SGD step (lr {DDP_LR}); float64 (plain warp, xla): every gradient within "
+            f"relative L2 {worst64[0]:.2e} ({worst64[1]}; <= {F64_GRAD_RTOL}) of one "
+            f"process's float64 step, worst scalar rel diff {scalar64[0]:.2e}; float32 "
+            f"--ot_backend pallas against one process's float32 step with the ranks' "
+            f"BatchNorm arithmetic: loss {f32[0]['scalars']['loss']:.6f} vs "
+            f"{ref['f32']['scalars']['loss']:.6f}, worst scalar rel diff {scalar32[0]:.2e} "
+            f"({scalar32[1]}; rtol 1e-5, {VARIANT_WINDOW_RTOL} for {', '.join(WINDOW_SCALARS)}; "
+            f"the pixel fractions atol {PIXEL_ATOL} more, taken by {sorted(flips) or 'none'}); "
+            f"pixels a stage whose window moved from the float64 step: spatial {moved}, one "
+            f"process {moved_one}; gradients from their float64 step: spatial worst "
+            f"{worst[0]:.2e} ({worst[1]}), median {medians[0]:.2e}; one "
+            f"process worst {worst_one[0]:.2e} ({worst_one[1]}), median {medians[1]:.2e} "
+            f"(spatial median <= {F32_NOISE_RATIO}x); launches a rank "
+            f"{f32[0]['launches']}; ranks bitwise equal | {card}")
+
+    k1_err = max(k1_on_band(dev, H, W, 2, seed=241), k1_on_band(dev, H, W, 4, seed=245))
+    band_err = (*k23_on_band(dev, 2, seed=250), *k45_on_band(dev, 2, seed=255))
+    log(f"[24c kernels on a band] K1 on the last of 2 and of 4 bands of the DTU-mid stages "
+        f"vs plain max|d| {k1_err:.3e} (atol=rtol={KERNEL_TOL}); K2 (bitwise) / K3 / K4 / K5 "
+        f"on the last of 2 bands at batch {BATCH} vs plain max|d| "
+        + " / ".join(f"{e:.3e}" for e in band_err))
+    log(f"[24] {time.perf_counter() - t0:.1f} s ({single_s:.1f} s for one process's "
+        f"references while the ranks ran, {ranks_s:.1f} s until the ranks were done; 4 "
+        f"processes started once); launches over the ranks: serve {serve_totals}, train "
+        f"{train_totals}")
+    return serve_totals, train_totals, k1_err, band_err
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3173,11 +3751,14 @@ def main():
         # 23: the image-row sharded train step, from phase 8's tree
         st_launches, st_k1, (st_err2, st_err3, st_err4, st_err5) = phase23_spatial_train(
             dev, tmp, root, card)
+        # 24: every variant through both spatial steps, from phase 8's tree
+        sv_serve, sv_train, sv_k1_err, (sv_err2, sv_err3, sv_err4, sv_err5) = (
+            phase24_spatial_variants(dev, tmp, root, card))
 
     print(card)
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=main_path_launches,
-             max_abs_err=max(*errs, dtu_err, tanks_err, spatial_err),
+             max_abs_err=max(*errs, dtu_err, tanks_err, spatial_err, sv_k1_err),
              ms=k1_sums["qk"],
              plain_ms=k1_sums["p"], bound_ms=k1_sums["b"], bound_by=k1_bounds[-1][1],
              library_ms=None, back_to_back_ms=k1_sums["k"], wrapper_ms=k1_sums["w"],
@@ -3185,37 +3766,50 @@ def main():
                                "tanks": tanks_launches, "ddp_train": ddp_launches["K1"],
                                "variants": variant_launches["K1"],
                                "spatial_serve": spatial_launches,
-                               "spatial_train_serve": st_k1},
+                               "spatial_train_serve": st_k1,
+                               "spatial_variants_serve": sv_serve["K1"]},
              max_abs_err_by_path={"serve": max(errs), "dtu_scan": dtu_err, "tanks": tanks_err,
-                                  "spatial_serve": spatial_err}),
-        dict(K2, launches=k2_launches, max_abs_err=max(err2, vis_err, st_err2), ms=sums["qk2"],
+                                  "spatial_serve": spatial_err,
+                                  "spatial_variants_serve": sv_k1_err}),
+        dict(K2, launches=k2_launches, max_abs_err=max(err2, vis_err, st_err2, sv_err2),
+             ms=sums["qk2"],
              plain_ms=sums["p2"], bound_ms=sums["b2"], bound_by=by2,
              library_ms=sums["qgs_f"], back_to_back_ms=sums["k2"],
              launches_by_path={"train": k2_launches, "ddp_train": ddp_launches["K2"],
                               "variants": variant_launches["K2"], "vis_eta": vis_launches,
-                              "sg_cuts": cut_launches["K2"], "spatial_train": st_launches["K2"]},
-             max_abs_err_by_path={"train": err2, "vis_eta": vis_err, "spatial_train": st_err2}),
-        dict(K3, launches=k3_launches, max_abs_err=max(err3, st_err3), ms=sums["qk3"],
+                              "sg_cuts": cut_launches["K2"], "spatial_train": st_launches["K2"],
+                              "spatial_variants_train": sv_train["K2"]},
+             max_abs_err_by_path={"train": err2, "vis_eta": vis_err, "spatial_train": st_err2,
+                                  "spatial_variants_train": sv_err2}),
+        dict(K3, launches=k3_launches, max_abs_err=max(err3, st_err3, sv_err3), ms=sums["qk3"],
              plain_ms=sums["p3"], bound_ms=sums["b3"], bound_by=by3,
              library_ms=sums["qgs_b"], back_to_back_ms=sums["k3"],
              launches_by_path={"train": k3_launches, "ddp_train": ddp_launches["K3"],
                               "variants": variant_launches["K3"],
-                              "sg_cuts": cut_launches["K3"], "spatial_train": st_launches["K3"]},
-             max_abs_err_by_path={"train": err3, "spatial_train": st_err3}),
-        dict(K4, launches=ft_launches["K4"], max_abs_err=max(err4, st_err4), ms=ot_sums["qk4"],
+                              "sg_cuts": cut_launches["K3"], "spatial_train": st_launches["K3"],
+                              "spatial_variants_train": sv_train["K3"]},
+             max_abs_err_by_path={"train": err3, "spatial_train": st_err3,
+                                  "spatial_variants_train": sv_err3}),
+        dict(K4, launches=ft_launches["K4"], max_abs_err=max(err4, st_err4, sv_err4),
+             ms=ot_sums["qk4"],
              plain_ms=ot_sums["p4"], bound_ms=ot_sums["b4"], bound_by=by4,
              library_ms=None, back_to_back_ms=ot_sums["k4"],
              launches_by_path={"fine_tune": ft_launches["K4"], "ddp_train": ddp_launches["K4"],
                               "variants": variant_launches["K4"],
-                              "sg_cuts": cut_launches["K4"], "spatial_train": st_launches["K4"]},
-             max_abs_err_by_path={"train": err4, "spatial_train": st_err4}),
-        dict(K5, launches=ft_launches["K5"], max_abs_err=max(err5, st_err5), ms=ot_sums["qk5"],
+                              "sg_cuts": cut_launches["K4"], "spatial_train": st_launches["K4"],
+                              "spatial_variants_train": sv_train["K4"]},
+             max_abs_err_by_path={"train": err4, "spatial_train": st_err4,
+                                  "spatial_variants_train": sv_err4}),
+        dict(K5, launches=ft_launches["K5"], max_abs_err=max(err5, st_err5, sv_err5),
+             ms=ot_sums["qk5"],
              plain_ms=ot_sums["p5"], bound_ms=ot_sums["b5"], bound_by=by5,
              library_ms=None, back_to_back_ms=ot_sums["k5"],
              launches_by_path={"fine_tune": ft_launches["K5"], "ddp_train": ddp_launches["K5"],
                               "variants": variant_launches["K5"],
-                              "sg_cuts": cut_launches["K5"], "spatial_train": st_launches["K5"]},
-             max_abs_err_by_path={"train": err5, "spatial_train": st_err5}),
+                              "sg_cuts": cut_launches["K5"], "spatial_train": st_launches["K5"],
+                              "spatial_variants_train": sv_train["K5"]},
+             max_abs_err_by_path={"train": err5, "spatial_train": st_err5,
+                                  "spatial_variants_train": sv_err5}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3231,4 +3825,6 @@ if __name__ == "__main__":
         sys.exit(spatial_rank(sys.argv[2]))
     if sys.argv[1:2] == [SPATIAL_TRAIN_RANK]:
         sys.exit(spatial_train_rank(sys.argv[2]))
+    if sys.argv[1:2] == [SPATIAL_VARIANT_RANK]:
+        sys.exit(spatial_variant_rank(sys.argv[2]))
     sys.exit(main())

@@ -3,14 +3,22 @@
 Plane-sweep inference and training at resolutions whose activations
 outgrow one device: the ranks of a data row share its images by bands of
 rows, and each rank runs the cascade on its band alone.  The JAX package
-lets GSPMD partition H over a second mesh axis; here the exchanges are
-written out:
+lets GSPMD partition H over a second mesh axis, whatever the model
+computes; here the exchanges are written out, and every configuration of
+the model runs:
 
-  - every convolution taller than one row takes halo rows from the
-    neighbouring bands before it runs (the count follows from its kernel,
-    stride and padding; the image's first and last bands keep zero
-    padding), through hooks on the conv modules while the step runs, so
-    the model's layers run unchanged;
+  - every convolution taller than one row takes halo rows from the other
+    bands before it runs (the count follows from its kernel, stride and
+    padding; the image's first and last bands keep zero padding), through
+    hooks on the conv modules while the step runs, so the model's layers
+    run unchanged.  A halo taller than the band (PAM's 7x7 and PDAM's
+    7x7x7 gates at Reg2d's deepest level) reads every band it reaches.
+    This covers FPN4 and the ConvNeXt pyramids (their 7x7 depthwise and
+    2x2 patchify convs; LayerNorm is per pixel), Reg2d and Reg3d (its
+    stride-2 3x3x3 convs, transposed convs and 3x3x3 head), ASFF's conv
+    blocks (its max pools, window equal to stride, and nearest upsampling
+    are row-local on aligned bands), the mono decoder, and PAM and PDAM,
+    whose statistics are per pixel;
   - the align-corners resizes (the FPN's top-down 2x, the hypotheses'
     2x, the confidence's upsampling) take one halo row on each side and
     map the band's rows to their global coordinates: the model takes
@@ -19,23 +27,31 @@ written out:
     source feature maps from the bands (the model's `gather_sources`
     callable, RowBand.gather_sources); the reference stays a band, and
     the cost-volume kernel K1 takes the band's first row (`row0`) and the
-    sources' own size.
+    sources' own size;
+  - the layers with a `row_band` attribute get the band while the step
+    runs: CAM's and DCAM's pools over H are the whole image's (the mean a
+    sum over the spatial group over the image's count, the max each
+    band's max in its slot, the slots' max), and DCN computes its offsets
+    on the band and samples the whole map gathered from the bands, at
+    global rows, clamped to the whole image.
 
 Strided convolutions sample rows at the global parity, so a band starts at
-a multiple of the cascade's total stride: the FPN's 8 times Reg2d's 8 at
-stage 1 is 64 rows, and H must be a multiple of 64 * spatial.
+a multiple of the cascade's total stride: the FPN's 8 times the
+regulariser's 8 (Reg2d's three stride-2 levels, or Reg3d's down_size <= 3)
+at stage 1 is 64 rows, and H must be a multiple of 64 * spatial.
 
 Collectives are all_reduce only (sums into zeroed slots, exact since
 x + 0 = x), since gloo takes nothing else on CUDA tensors; the ranks of
 one card therefore run over gloo.  Each exchange is a sum over the
 spatial group (dist/reduce.AllSum), so its backward is one too: the
 gradient of the halo rows a rank read goes back into the rows of the
-neighbour they came from, and each rank keeps its own band's rows of the
-gathered sources' gradient, summed over the group.  In training the
-loss, BatchNorm's moments (sums over every rank) and the depth metrics
-(each image's sums over its bands) are the global batch's, and the
-parameters' gradients are averaged over every rank once the backward is
-done.  The entry points are the functions, under torchrun's environment:
+band they came from, each rank keeps its own band's rows of a gathered
+map's gradient, summed over the group, and a pooled value's gradient
+reaches every band that it pooled.  In training the loss, BatchNorm's
+moments (sums over every rank) and the depth metrics (each image's sums
+over its bands) are the global batch's, and the parameters' gradients are
+averaged over every rank once the backward is done.  The entry points are
+the functions, under torchrun's environment:
 
   rank, world = dist.mesh.maybe_initialize_distributed(device, backend)
   groups = make_2d_groups(data, spatial)
@@ -43,11 +59,6 @@ done.  The entry points are the functions, under torchrun's environment:
   depth, conf = step(imgs, proj_matrices, depth_values)  # this data row's
   train = make_spatial_train_step(model, optimizer, groups, loss_kwargs=...)
   scalars, images = train(batch)  # this data row's batch; images its band
-
-Only the row-local configurations run: FPN4, Reg2d with ConvBnReLU3D
-blocks, any positional encoding, float32 or bfloat16, with or without the
-mono branch.  ASFF, DCN, the attention blocks, Reg3d and the ConvNeXt
-pyramids raise.
 """
 
 from __future__ import annotations
@@ -66,7 +77,8 @@ from mvster_tpu_torch.dist.reduce import AllSum
 from mvster_tpu_torch.dist.train_step import _collect_scalars_images, _forward_loss
 from mvster_tpu_torch.models.losses import mvs4net_loss
 
-# rows a band must hold a multiple of: FPN4's stride 8 times Reg2d's 8
+# rows a band must hold a multiple of: the pyramid's stride 8 times the
+# regulariser's 8 (three stride-2 levels of Reg2d, or of Reg3d at most)
 BAND_ALIGN = 64
 
 
@@ -158,24 +170,47 @@ class RowBand:
         """x with the `top` rows above the band and the `bottom` rows below
         it (zeros past the image's edges) -> (..., top + rows + bottom, W).
         The halos and their gradients travel in x's precision, or float32
-        for lower ones; the gradient of the rows a rank read from a
-        neighbour is summed back into that neighbour's rows."""
-        rows = x.shape[-2]
-        if max(top, bottom) > rows:
-            raise ValueError(f"a halo of {max(top, bottom)} rows from bands of {rows}")
+        for lower ones; the gradient of the rows a rank read from another
+        band is summed back into that band's rows.  A halo taller than the
+        band reads the whole map (`gather`), so it takes rows from every
+        band it reaches."""
         if top == bottom == 0:
             return x
+        rows = x.shape[-2]
         dt = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
+        if max(top, bottom) > rows:
+            whole = self.gather(x.to(dt))
+            edge = lambda n: whole.new_zeros((*x.shape[:-2], n, x.shape[-1]))  # noqa: E731
+            whole = torch.cat([edge(top), whole, edge(bottom)], dim=-2)
+            return whole.narrow(-2, self.row0(rows), top + rows + bottom).to(x.dtype)
         # slot r holds band r's last `top` rows (the next band's halo above)
         # and its first `bottom` rows (the previous band's halo below)
         own = torch.cat([x[..., rows - top:, :], x[..., :bottom, :]], dim=-2).to(dt)
-        slots = self._sum(torch.stack([own if r == self.index else torch.zeros_like(own)
-                                       for r in range(self.n)]))
+        slots = self._slots(own)
         above = (slots[self.index - 1, ..., :top, :].to(x.dtype) if self.index > 0
                  else x.new_zeros((*x.shape[:-2], top, x.shape[-1])))
         below = (slots[self.index + 1, ..., top:, :].to(x.dtype) if self.index < self.n - 1
                  else x.new_zeros((*x.shape[:-2], bottom, x.shape[-1])))
         return torch.cat([above, x, below], dim=-2)
+
+    def _slots(self, own: torch.Tensor) -> torch.Tensor:
+        """(n, *own.shape): slot r holds band r's `own`, summed over the group
+        into zeroed slots."""
+        return self._sum(torch.stack([own if r == self.index else torch.zeros_like(own)
+                                      for r in range(self.n)]))
+
+    def mean(self, x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+        """The whole image's mean of x over `dims`, the row axis (-2) among
+        them: the bands' sums summed over the group, over the image's count.
+        Under data x spatial ranks each data row pools its own images."""
+        count = self.n * int(np.prod([x.shape[d] for d in dims]))
+        return self._sum(x.sum(dims)) / count
+
+    def amax(self, x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+        """The whole image's max of x over `dims`, the row axis among them:
+        each band's max in its slot, the slots' max.  The gradient goes back
+        to the band that held the maximum."""
+        return self._slots(x.amax(dims)).amax(0)
 
     def resize(self, x: torch.Tensor, out_rows: int, out_w: int) -> torch.Tensor:
         """Align-corners bilinear resize of the band's (..., rows, W) to
@@ -209,12 +244,17 @@ class RowBand:
     @contextlib.contextmanager
     def halo_convs(self, module: nn.Module):
         """Within: every conv of `module` taller than one row (its rows the
-        second-to-last axis) takes its halo rows from the neighbouring bands
-        and pads no rows itself; a transposed conv's output is cropped to
-        the band's rows.  The modules are restored on exit."""
-        handles, saved = [], []
+        second-to-last axis) takes its halo rows from the other bands and
+        pads no rows itself; a transposed conv's output is cropped to the
+        band's rows; and every layer with a `row_band` attribute (the
+        channel-attention blocks' pools over H, DCN's sampling) gets this
+        band as it.  The modules are restored on exit."""
+        handles, saved, layers = [], [], []
         try:
             for m in module.modules():
+                if hasattr(m, "row_band"):
+                    layers.append(m)
+                    m.row_band = self
                 if not isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
                     continue
                 k, s, p = m.kernel_size[-2], m.stride[-2], m.padding[-2]
@@ -232,6 +272,8 @@ class RowBand:
                         lambda mod, args, t=top, b=bottom: (self.halo(args[0], t, b),)))
             yield
         finally:
+            for m in layers:
+                del m.row_band  # back to the class's None
             for h in handles:
                 h.remove()
             for m, padding, output_padding in saved:
@@ -261,34 +303,12 @@ class RowBand:
         return [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
 
 
-def check_row_local(config) -> None:
-    """Raise NotImplementedError, naming them, for the settings of `config`
-    whose ops are not row-local, so that image rows cannot be sharded by
-    halos alone."""
-    found = []
-    if config.arch_mode != "fpn":
-        found.append(f"arch_mode={config.arch_mode!r} (the ConvNeXt pyramids)")
-    if config.asff:
-        found.append("asff (ASFF's cross-level resampling)")
-    if config.dcn:
-        found.append("dcn (DCN's learned offsets)")
-    if config.reg_net != "reg2d":
-        found.append(f"reg_net={config.reg_net!r} (Reg3d's strides over D, H and W)")
-    elif config.agg_type != "ConvBnReLU3D":
-        found.append(f"agg_type={config.agg_type!r} (the attention blocks' pooling "
-                     "and 7x7x7 gates)")
-    if found:
-        raise NotImplementedError("image-row sharding runs the row-local configurations "
-                                  f"only, not {', '.join(found)}")
-
-
 def make_spatial_infer_step(model, groups: SpatialGroups):
     """The eval forward with each rank of a data row holding one band of
     image rows.  Returns step(imgs, proj_matrices, depth_values) ->
     (depth, photometric_confidence), this rank's band, each
     (B, H / spatial, W); the inputs are its data row's, whole, and only
     the band's image rows go to the device."""
-    check_row_local(model.config)
     band = RowBand(groups)
 
     def step(imgs, proj_matrices, depth_values):
@@ -341,7 +361,6 @@ def make_spatial_train_step(model, optimizer, groups: SpatialGroups,
     it), of which only the band's rows go to the device; the scalars are
     the global batch's, the same on every rank, and the images this rank's
     band (gather_rows assembles them)."""
-    check_row_local(model.config)
     band = RowBand(groups)
     loss_kwargs = dict(loss_kwargs or {})
 

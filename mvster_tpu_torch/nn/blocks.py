@@ -176,19 +176,31 @@ class _AttentionBlock(ConvBnReLU3D):
 
 
 class _ChannelAttention(_AttentionBlock):
+    """The gates pool over H.  On a band of image rows `row_band` is the
+    band (dist/spatial.RowBand, set while the step runs), and the pools are
+    the whole image's."""
+
+    row_band = None
+
     def __init__(self, in_channels: int, out_channels: int, **kwargs):
         super().__init__(in_channels, out_channels, **kwargs)
         self.linear_agg = nn.Sequential(
             nn.Linear(out_channels, out_channels // 2), nn.ReLU(),
             nn.Linear(out_channels // 2, out_channels))
 
+    def _pools(self, y, dims):
+        """y's mean and max over `dims`, the whole image's."""
+        if self.row_band is None:
+            return y.mean(dims), y.amax(dims)
+        return self.row_band.mean(y, dims), self.row_band.amax(y, dims)
+
 
 class ConvBnReLU3D_CAM(_ChannelAttention):
     """Channel gates from the mean and max over (D, H, W), through one MLP."""
 
     def gate(self, y):
-        dims = (2, 3, 4)
-        a = self.linear_agg(y.mean(dims)) + self.linear_agg(y.amax(dims))
+        mean, amax = self._pools(y, (2, 3, 4))
+        a = self.linear_agg(mean) + self.linear_agg(amax)
         return torch.sigmoid(a)[:, :, None, None, None]
 
 
@@ -196,9 +208,9 @@ class ConvBnReLU3D_DCAM(_ChannelAttention):
     """Channel gates per depth plane, from the mean and max over (H, W)."""
 
     def gate(self, y):
-        dims = (3, 4)
-        a = (self.linear_agg(y.mean(dims).transpose(1, 2))
-             + self.linear_agg(y.amax(dims).transpose(1, 2)))  # (B, D, C)
+        mean, amax = self._pools(y, (3, 4))
+        a = (self.linear_agg(mean.transpose(1, 2))
+             + self.linear_agg(amax.transpose(1, 2)))  # (B, D, C)
         return torch.sigmoid(a).transpose(1, 2)[..., None, None]
 
 

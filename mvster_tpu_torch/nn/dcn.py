@@ -46,7 +46,14 @@ def _clamped_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
 
 class DeformConv2d(nn.Module):
     """(B, C, H, W) -> (B, O, H, W): modulated deformable k x k conv, stride 1,
-    padding (k - 1) / 2, no bias."""
+    padding (k - 1) / 2, no bias.
+
+    On a band of image rows `row_band` is the band (dist/spatial.RowBand,
+    set while the step runs): the offsets are the band's, and the taps,
+    which may reach any row, sample the whole map gathered from the bands
+    at the band's global rows."""
+
+    row_band = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
         super().__init__()
@@ -62,11 +69,14 @@ class DeformConv2d(nn.Module):
         b, c, h, w = x.shape
         offsets = self.p_conv(x).permute(0, 2, 3, 1)  # (B, H, W, 2n)
         mod = torch.sigmoid(self.m_conv(x)).permute(0, 2, 3, 1)  # (B, H, W, n)
-        x_pad = F.pad(x, (pad, pad, pad, pad)).permute(0, 2, 3, 1)
+        whole, row0 = x, 0
+        if self.row_band is not None:
+            whole, row0 = self.row_band.gather(x), self.row_band.row0(h)
+        x_pad = F.pad(whole, (pad, pad, pad, pad)).permute(0, 2, 3, 1)
         ar = lambda m: torch.arange(m, dtype=x.dtype, device=x.device)  # noqa: E731
         taps = ar(k) - pad
         ty, tx = taps.repeat_interleave(k), taps.repeat(k)  # (n,) as n = ki * k + kj
-        py = (ar(h) + pad)[:, None, None] + ty + offsets[..., :n]  # (B, H, W, n)
+        py = (ar(h) + row0 + pad)[:, None, None] + ty + offsets[..., :n]  # (B, H, W, n)
         px = (ar(w) + pad)[None, :, None] + tx + offsets[..., n:]
         samples = _clamped_bilinear(x_pad, px, py) * mod[..., None]  # (B, H, W, n, C)
         kernel = self.weight.reshape(-1, c, n).permute(2, 1, 0)  # (n, C, O)

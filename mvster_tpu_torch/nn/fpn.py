@@ -167,12 +167,12 @@ class FPN4ConvNeXt(_TopDown):
         self.conv3 = self.block(4 * b)
         self._init_top_down(b, dcn)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, resize=None) -> dict[str, torch.Tensor]:
         conv0 = self.conv0_1(self.conv0_0(x))
         conv1 = self.conv1(conv0)
         conv2 = self.conv2(conv1)
         conv3 = self.conv3(conv2)
-        return self._top_down(conv0, conv1, conv2, conv3)
+        return self._top_down(conv0, conv1, conv2, conv3, resize)
 
 
 class FPN4ConvNeXt4(FPN4ConvNeXt):

@@ -18,11 +18,12 @@ Datasets: general_eval (DTU and custom scans), tanks (--split) and eth3d.
 Everything runs on the card unless --device cpu is given; without a card
 it raises.
 
-`infer_views` is the forward/drain loop of the JAX inference tool's
+`infer_views` is the dispatch/drain loop of the JAX inference tool's
 save_depth: reference views in chunks of eval_batch (the trailing chunk
 padded with its last view, so every forward has one shape), one eval
-forward per chunk, results copied to the host.  Unlike the JAX inference
-tool it does not dispatch the next chunk before draining the current one.
+forward per chunk.  It launches chunk i+1's forward before it yields chunk
+i's views, so the card runs the next forward while the caller writes the
+current views; on the CPU the outputs are the same and the overlap is gone.
 
   python -m mvster_tpu_torch.tools.test --testpath $DTU_TEST \\
       --testlist lists/dtu/test.txt --loadckpt model.ckpt \\
@@ -35,7 +36,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Iterable, Iterator
+from typing import Any, Iterable, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -50,15 +51,31 @@ from mvster_tpu_torch.tools.cli import (
 from mvster_tpu_torch.tools.weights import load_reference_ckpt
 
 
-def _forward_chunk(model, chunk, eval_batch, device, return_debug=False):
-    real = len(chunk)
-    padded = chunk + [chunk[-1]] * (eval_batch - real)
-    imgs = torch.from_numpy(np.stack([s["imgs"] for s in padded])).to(device)
-    projs = {
-        k: torch.from_numpy(np.stack([s["proj_matrices"][k] for s in padded])).to(device)
-        for k in padded[0]["proj_matrices"]
-    }
-    dv = torch.from_numpy(np.stack([s["depth_values"] for s in padded])).to(device)
+class _Pending(NamedTuple):
+    """A chunk whose forward was launched: its samples, its outputs on
+    their way to the host, the event after their copy, and the clock at
+    its launch."""
+
+    chunk: list[dict]
+    host: dict[str, torch.Tensor]
+    copied: torch.cuda.Event | None
+    t0: float
+
+
+def _dispatch(model, chunk, eval_batch, device, return_debug) -> _Pending:
+    """Launch one chunk's forward and the copy of its outputs into pinned
+    host memory behind it, without waiting for either (on a card)."""
+    padded = chunk + [chunk[-1]] * (eval_batch - len(chunk))
+    cuda = device.type == "cuda"
+
+    def put(arrays):
+        x = torch.from_numpy(np.stack(arrays))
+        return (x.pin_memory() if cuda else x).to(device, non_blocking=cuda)
+
+    imgs = put([s["imgs"] for s in padded])
+    projs = {k: put([s["proj_matrices"][k] for s in padded])
+             for k in padded[0]["proj_matrices"]}
+    dv = put([s["depth_values"] for s in padded])
     t0 = time.perf_counter()
     with torch.inference_mode():
         out = model(imgs, projs, dv, return_debug=return_debug)
@@ -71,13 +88,28 @@ def _forward_chunk(model, chunk, eval_batch, device, return_debug=False):
                 result[f"stage{s}_feat"] = stage["debug_features"].float()
                 result[f"stage{s}_proj"] = stage["debug_proj"]
                 result[f"stage{s}_hypo"] = stage["hypo_depth"]
-        result = {k: v.cpu().numpy() for k, v in result.items()}  # waits
-    seconds = time.perf_counter() - t0
-    for i in range(real):
+    if not cuda:
+        return _Pending(chunk, result, None, t0)
+    host = {}
+    for k, v in result.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return _Pending(chunk, host, copied, t0)
+
+
+def _drain(pending: _Pending) -> Iterator[tuple[dict, dict[str, Any]]]:
+    """Wait for one chunk's outputs on the host; yield its real views."""
+    if pending.copied is not None:
+        pending.copied.synchronize()
+    seconds = time.perf_counter() - pending.t0
+    result = {k: v.numpy() for k, v in pending.host.items()}
+    for i, sample in enumerate(pending.chunk):
         view = {k: v[i:i + 1] for k, v in result.items()}
         view["seconds"] = seconds
-        view["chunk_views"] = real
-        yield chunk[i], view
+        view["chunk_views"] = len(pending.chunk)
+        yield sample, view
 
 
 def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1,
@@ -88,20 +120,38 @@ def infer_views(model: MVS4Net, samples: Iterable[dict], eval_batch: int = 1,
     and depth_values (K,), all of one shape.  result: numpy depth and
     confidence (1, H, W), stage{s}_depth / stage{s}_conf (with
     return_debug also stage{s}_feat (1, V, h, w, C), stage{s}_proj
-    (1, V, 4, 4) and stage{s}_hypo (1, D, h, w)), and `seconds`, the wall
-    time of the forward that produced the view (with the copy back to the
-    host), shared by the `chunk_views` views of its chunk.
+    (1, V, 4, 4) and stage{s}_hypo (1, D, h, w)), and `seconds`, shared by
+    the `chunk_views` views of its chunk: as in the JAX inference tool, the
+    wall time from the launch of the chunk's forward until its results are
+    on the host, which, with the next chunk launched first, is measured
+    when the chunk is drained.
+
+    Before it yields chunk i's views it reads chunk i+1's samples and
+    launches chunk i+1's forward; chunk i's outputs were copied behind its
+    forward into pinned host memory, and only the event after that copy is
+    waited on, when chunk i drains.
     """
     eval_batch = max(1, eval_batch)
     device = next(model.parameters()).device
+    pending = None
+    for chunk in _chunks(samples, eval_batch):
+        current = _dispatch(model, chunk, eval_batch, device, return_debug)
+        if pending is not None:
+            yield from _drain(pending)
+        pending = current
+    if pending is not None:
+        yield from _drain(pending)
+
+
+def _chunks(samples: Iterable[dict], n: int) -> Iterator[list[dict]]:
     chunk: list[dict] = []
     for sample in samples:
         chunk.append(sample)
-        if len(chunk) == eval_batch:
-            yield from _forward_chunk(model, chunk, eval_batch, device, return_debug)
+        if len(chunk) == n:
+            yield chunk
             chunk = []
     if chunk:
-        yield from _forward_chunk(model, chunk, eval_batch, device, return_debug)
+        yield chunk
 
 
 def colormap_jet(depth: np.ndarray) -> np.ndarray:

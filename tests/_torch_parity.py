@@ -84,6 +84,12 @@ VARIANTS = {
     "dcn": dict(dcn=True),
     "bf16": dict(compute_dtype="bfloat16"),
 }
+# the variants whose image-row sharding takes more than row-local layers
+# (tests/test_torch_spatial_variants*.py); ASFF at fpn_base_channel 8 on a
+# narrow model, since its input channels are fixed at (64, 32, 16, 8)
+BAND_VARIANTS = {k: dict(VARIANTS[k], **({"fpn_base_channel": 8} if k == "asff" else {}))
+                 for k in ("reg3d", "cam", "dcam", "pam", "pdam", "asff", "convnext",
+                           "convnext4", "dcn")}
 
 
 def perturbed_variables(jax_model_init_shapes, seed):
@@ -599,9 +605,12 @@ REG2D_RADIUS = 36
 
 
 def _dilate(mask: np.ndarray, radius: int) -> np.ndarray:
-    """(B, H, W) bool mask grown by a (2r+1)^2 box."""
+    """(B, H, W) bool mask grown by a (2r+1)^2 box (a column max, then a
+    row max)."""
     m = torch.from_numpy(mask[:, None].astype(np.float32))
-    return torch.nn.functional.max_pool2d(m, 2 * radius + 1, 1, radius)[:, 0].numpy() > 0
+    k = 2 * radius + 1
+    m = torch.nn.functional.max_pool2d(m, (k, 1), 1, (radius, 0))
+    return torch.nn.functional.max_pool2d(m, (1, k), 1, (0, radius))[:, 0].numpy() > 0
 
 
 def assert_stage_close(ref_out, our_out, atol=2e-3, num_stage=4):

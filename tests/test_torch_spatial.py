@@ -274,18 +274,6 @@ def test_bad_height_raises():
         step(*_inputs(sample))
 
 
-@pytest.mark.parametrize("override, named", [
-    (dict(asff=True), "asff"), (dict(dcn=True), "dcn"),
-    (dict(agg_type="ConvBnReLU3D_PDAM"), "agg_type"), (dict(reg_net="reg3d"), "reg3d"),
-    (dict(arch_mode="convnext"), "convnext"),
-])
-def test_variants_that_are_not_row_local_raise(override, named):
-    from mvster_tpu_torch.dist.spatial import SpatialGroups, make_spatial_infer_step
-
-    with pytest.raises(NotImplementedError, match=named):
-        make_spatial_infer_step(_model(None, **override), SpatialGroups(1, 2, 0, 0, None, None))
-
-
 @pytest.mark.parametrize("row0", [0, 16, 40])
 def test_cost_volume_on_a_band_is_the_whole_volume_cropped(row0):
     """K1's plain version with a band offset and whole sources against the

@@ -44,9 +44,12 @@ which fails on its own: ROADMAP R1).  Tolerances:
     sample 1.
 The exchanges alone, in float64 on the 2 x 2 ranks: a conv stack through
 RowBand.halo_convs (a 3x3 conv, a stride-2 conv and Reg2d's transposed
-conv), RowBand.resize and RowBand.gather, each band's gradient against
-the slice of the whole map's; and the hooks and paddings after a step
-whose loss raised.
+conv), RowBand.resize, RowBand.gather, the group's mean and max over a
+data row's own images (the channel-attention pools), DCN on a band and
+halos taller than a band (also with the four ranks as one spatial group),
+each band's gradient against the slice of the whole map's; and, for the
+base model and every variant, the hooks, paddings and band layers after a
+step whose loss raised.
 """
 
 from __future__ import annotations
@@ -221,40 +224,116 @@ def _exchanges(groups):
     full = band.gather(xb, dim=2)
     (full * cots[band.index]).sum().backward()
     out["gather"] = (full.detach(), x, xb.grad, band.cut(sum(cots), 2))
+
+    # the group's pools over a data row's own images: each data row draws
+    # its own map, so a pool over every rank would mix them; each band's
+    # copy of the pooled value takes a cotangent of its own
+    gd = torch.Generator().manual_seed(11 + groups.data_row)
+    x = torch.randn(2, 3, 2, 8, 5, generator=gd, dtype=torch.float64)
+    for name, dims in (("mean", (2, 3, 4)), ("amax", (3, 4))):
+        whole_fn = getattr(torch.Tensor, name)
+        pooled = whole_fn(x, dims)
+        cots = [torch.randn(pooled.shape, generator=gd, dtype=torch.float64)
+                for _ in range(band.n)]
+        xb = band.cut(x).clone().requires_grad_()
+        yb = getattr(band, name)(xb, dims)
+        (yb * cots[band.index]).sum().backward()
+        xw = x.clone().requires_grad_()
+        (whole_fn(xw, dims) * sum(cots)).sum().backward()
+        out[name] = (yb.detach(), pooled, xb.grad, band.cut(xw.grad))
+
+    # DCN on a band (its offset and modulation convs through the halo hooks,
+    # the taps from the gathered map) against the whole image's DCN cut to
+    # the band, with offsets large enough to reach other bands' rows
+    from mvster_tpu_torch.nn.dcn import DeformConv2d
+
+    dcn = DeformConv2d(3, 2).double()
+    for p in dcn.parameters():
+        p.data = rnd(*p.shape)
+    dcn.p_conv.weight.data *= 4.0
+
+    def run_dcn(x, banded):
+        if not banded:
+            return dcn(x)
+        with band.halo_convs(dcn):
+            return dcn(x)
+
+    x, cot = rnd(1, 3, 16, 6), rnd(1, 2, 16, 6)
+    yb, gb, yw, gw = grads(run_dcn, x, cot)
+    dcn.zero_grad()
+    run_dcn(band.cut(x), True).mul(band.cut(cot)).sum().backward()
+    band_w = torch.cat([p.grad.reshape(-1) for p in dcn.parameters()])
+    dist.all_reduce(band_w, group=band.group)
+    dcn.zero_grad()
+    dcn(x).mul(cot).sum().backward()
+    whole_w = torch.cat([p.grad.reshape(-1) for p in dcn.parameters()])
+    reach = float(dcn.p_conv(x).detach().abs().max())  # the largest offset, in rows or columns
+    out["dcn"] = (yb, band.cut(yw), gb, band.cut(gw), band_w, whole_w, reach)
     return out
 
 
-def _raise_halfway(sd, groups):
-    """A step whose loss raises after the forward: the convs' hooks and
-    paddings after it, against before."""
+def _tall_halos(groups):
+    """Halos taller than the band (top 3, bottom 2 from bands of one row),
+    forward and float64 gradient, against the zero-padded whole map's rows:
+    under spatial 4 the halo above the last band reaches three bands."""
+    from mvster_tpu_torch.dist.spatial import RowBand
+
+    band = RowBand(groups)
+    g = torch.Generator().manual_seed(13)
+    top, bottom, rows = 3, 2, 1
+    x = torch.randn(2, 3, band.n * rows, 4, generator=g, dtype=torch.float64)
+    span = top + rows + bottom
+    cots = [torch.randn(2, 3, span, 4, generator=g, dtype=torch.float64)
+            for _ in range(band.n)]
+    xb = band.cut(x).clone().requires_grad_()
+    yb = band.halo(xb, top, bottom)
+    (yb * cots[band.index]).sum().backward()
+    xw = x.clone().requires_grad_()
+    padded = torch.nn.functional.pad(xw, (0, 0, top, bottom))
+    windows = [padded[..., r * rows:r * rows + span, :] for r in range(band.n)]
+    sum((w * c).sum() for w, c in zip(windows, cots)).backward()
+    return yb.detach(), windows[band.index].detach(), xb.grad, band.cut(xw.grad)
+
+
+def _raise_halfway(groups):
+    """A step whose loss raises after the forward, for the base model and
+    every variant: the convs' hooks and paddings and the band layers'
+    `row_band` after it, against before."""
+    from _torch_parity import BAND_VARIANTS, VARIANTS
     from mvster_tpu_torch.dist import spatial
+    from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig
 
-    model = _model(sd)
-
-    def convs():
-        return [(name, m.padding, getattr(m, "output_padding", None),
-                 len(m._forward_pre_hooks), len(m._forward_hooks))
+    def state(model):
+        return [(name, getattr(m, "padding", None), getattr(m, "output_padding", None),
+                 len(m._forward_pre_hooks), len(m._forward_hooks), "row_band" in vars(m))
                 for name, m in model.named_modules()
-                if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose3d))]
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose3d))
+                or hasattr(m, "row_band")]
 
     def loss_fn(*args, **kwargs):
         raise RuntimeError("the loss raised")
 
-    before = convs()
-    step = spatial.make_spatial_train_step(model, torch.optim.SGD(model.parameters(), lr=LR),
-                                           groups)
     with torch.no_grad():
         batch = _torch(_rows(_batch(), slice(groups.data_row, groups.data_row + 1)),
                        torch.float32)
-    loss, spatial.mvs4net_loss = spatial.mvs4net_loss, loss_fn
-    try:
-        step(batch)
-        raised = None
-    except RuntimeError as exc:
-        raised = str(exc)
-    finally:
-        spatial.mvs4net_loss = loss
-    return {"raised": raised, "before": before, "after": convs()}
+    out = {}
+    for name, overrides in {"base": {}, **VARIANTS, **BAND_VARIANTS}.items():
+        torch.manual_seed(0)
+        model = MVS4Net(MVS4NetConfig(**dict(CFG, **overrides)))
+        before = state(model)
+        step = spatial.make_spatial_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=LR), groups)
+        loss, spatial.mvs4net_loss = spatial.mvs4net_loss, loss_fn
+        try:
+            step(batch)
+            raised = None
+        except RuntimeError as exc:
+            raised = str(exc)
+        finally:
+            spatial.mvs4net_loss = loss
+        out[name] = {"raised": raised, "before": before, "after": state(model),
+                     "band_layers": sum(hasattr(m, "row_band") for m in model.modules())}
+    return out
 
 
 def _worker(tmp):
@@ -283,7 +362,10 @@ def _worker(tmp):
             res[name] = _spatial_step(inputs["sd"], batch, groups, dtype, backend, overrides)
         if split == "2x2":
             res["exchanges"] = _exchanges(groups)
-            res["raise"] = _raise_halfway(inputs["sd"], groups)
+            res["tall_halos"] = _tall_halos(groups)
+            res["raise"] = _raise_halfway(groups)
+            # the four ranks as one spatial group
+            res["tall_halos_1x4"] = _tall_halos(make_2d_groups(1, 4))
         out[split] = res
     dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
@@ -529,12 +611,44 @@ def test_exchanges_carry_the_whole_maps_gradients(runs):
         torch.testing.assert_close(gb, gw, rtol=1e-12, atol=1e-12)
 
 
-def test_hooks_and_paddings_are_restored_after_a_step_that_raised(runs):
+def test_exchanges_pool_and_sample_over_the_whole_map(runs):
+    """The group's mean and max of a data row's own images and DCN on a
+    band, forward and float64 gradients, against the whole map's."""
     for res in _split_ranks(runs, "2x2"):
-        out = res["raise"]
-        assert out["raised"] == "the loss raised"
-        assert out["after"] == out["before"]
-        assert all(pre == post == 0 for *_, pre, post in out["after"])
+        ex = res["exchanges"]
+        for name in ("mean", "amax"):
+            yb, yw, gb, gw = ex[name]
+            torch.testing.assert_close(yb, yw, rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(gb, gw, rtol=1e-12, atol=1e-12)
+        yb, yw, gb, gw, band_w, whole_w, reach = ex["dcn"]
+        assert reach > 8  # some tap reaches past a whole band of 8 rows
+        torch.testing.assert_close(yb, yw, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(gb, gw, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(band_w, whole_w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("split", ["tall_halos", "tall_halos_1x4"])
+def test_tall_halos_read_every_band_they_reach(runs, split):
+    for res in _split_ranks(runs, "2x2"):
+        yb, yw, gb, gw = res[split]
+        assert torch.equal(yb, yw)
+        torch.testing.assert_close(gb, gw, rtol=1e-12, atol=1e-12)
+
+
+def test_hooks_and_paddings_are_restored_after_a_step_that_raised(runs):
+    from _torch_parity import BAND_VARIANTS, VARIANTS
+
+    for res in _split_ranks(runs, "2x2"):
+        assert res["raise"].keys() == {"base", *VARIANTS, *BAND_VARIANTS}
+        for name, out in res["raise"].items():
+            assert out["raised"] == "the loss raised", name
+            assert out["after"] == out["before"], name
+            assert all(pre == post == 0 and not own for *_, pre, post, own in out["after"])
+        # the layers that take a band: CAM's and DCAM's conv2, conv4 and
+        # conv6 at each of 4 stages, and DCN's four heads
+        layers = {name: out["band_layers"] for name, out in res["raise"].items()}
+        assert layers["cam"] == layers["dcam"] == 12 and layers["dcn"] == 4
+        assert sum(layers.values()) == 28, layers
 
 
 def test_bad_height_raises():
@@ -548,21 +662,6 @@ def test_bad_height_raises():
     batch["imgs"] = batch["imgs"][:, :, :64]
     with pytest.raises(ValueError, match="multiple of 64 x spatial 2"):
         step(batch)
-
-
-@pytest.mark.parametrize("override, named", [
-    (dict(asff=True), "asff"), (dict(dcn=True), "dcn"),
-    (dict(agg_type="ConvBnReLU3D_PDAM"), "agg_type"), (dict(reg_net="reg3d"), "reg3d"),
-    (dict(arch_mode="convnext"), "convnext"),
-])
-def test_variants_that_are_not_row_local_raise(override, named):
-    from mvster_tpu_torch.dist.spatial import SpatialGroups, make_spatial_train_step
-    from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig
-
-    model = MVS4Net(MVS4NetConfig(**dict(CFG, **override)))
-    with pytest.raises(NotImplementedError, match=named):
-        make_spatial_train_step(model, torch.optim.SGD(model.parameters(), lr=LR),
-                                SpatialGroups(1, 2, 0, 0, None, None))
 
 
 if __name__ == "__main__":
