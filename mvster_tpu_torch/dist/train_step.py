@@ -36,14 +36,17 @@ import torch
 
 from mvster_tpu_torch.models.losses import mvs4net_loss
 from mvster_tpu_torch.train.metrics import depth_metrics
+from mvster_tpu_torch.utils.profiling import span
 
 
 def _forward_loss(model, batch, loss_fn, loss_kwargs, **model_kwargs):
     """The forward of `model` on `batch` and the loss: (loss, aux, outputs)."""
-    outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"],
-                    **model_kwargs)
-    loss, aux = loss_fn(outputs, batch["depth"], batch["mask"],
-                        depth_values=batch["depth_values"], **loss_kwargs)
+    with span("train.forward"):
+        outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"],
+                        **model_kwargs)
+    with span("train.loss"):
+        loss, aux = loss_fn(outputs, batch["depth"], batch["mask"],
+                            depth_values=batch["depth_values"], **loss_kwargs)
     return loss, aux, outputs
 
 
@@ -105,29 +108,32 @@ def make_train_step(
 
     def forward_backward(mb, scale):
         loss, aux, outputs = _forward_loss(model, mb, loss_fn, loss_kwargs)
-        (loss * scale).backward()
+        with span("train.backward"):
+            (loss * scale).backward()
         return _collect_scalars_images(loss, aux, outputs, mb["imgs"],
                                        mb["depth"], mb["mask"])
 
     def step(batch):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        if grad_accum == 1:
-            scalars, images = forward_backward(batch, 1.0)
-        else:
-            micro = _split(batch, grad_accum)
-            no_sync = getattr(model, "no_sync", contextlib.nullcontext)
-            results = []
-            for i, mb in enumerate(micro):
-                with no_sync() if i < grad_accum - 1 else contextlib.nullcontext():
-                    results.append(forward_backward(mb, 1.0 / grad_accum))
-            scalars = {k: torch.stack([r[0][k] for r in results]).mean()
-                       for k in results[0][0]}
-            images = {k: torch.cat([r[1][k] for r in results])
-                      for k in results[0][1]}
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("train.step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            if grad_accum == 1:
+                scalars, images = forward_backward(batch, 1.0)
+            else:
+                micro = _split(batch, grad_accum)
+                no_sync = getattr(model, "no_sync", contextlib.nullcontext)
+                results = []
+                for i, mb in enumerate(micro):
+                    with no_sync() if i < grad_accum - 1 else contextlib.nullcontext():
+                        results.append(forward_backward(mb, 1.0 / grad_accum))
+                scalars = {k: torch.stack([r[0][k] for r in results]).mean()
+                           for k in results[0][0]}
+                images = {k: torch.cat([r[1][k] for r in results])
+                          for k in results[0][1]}
+            with span("train.optimizer"):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
         return scalars, images
 
     return step

@@ -150,10 +150,9 @@ def build_cost_volume(
     attn_temp: float = 2.0,
     attn_fuse_d: bool = True,
     impl: str = "fused",
-    with_fallbacks: bool = False,
     sg_warp: bool = False,
     row0: int = 0,
-):
+) -> torch.Tensor:
     """Fused multi-view cost volume with online cross-view normalisation.
 
     ref_feat (B, H, W, C), the reference rows row0 .. row0 + H - 1;
@@ -161,13 +160,12 @@ def build_cost_volume(
     (B, 4, 4); src_projs (V, B, 4, 4) or V tensors (B, 4, 4); depth_hypo
     (B, D, H, W).  impl: "fused" (eval, K1) or "warp" (training,
     differentiable: K2/K3 per source view).  Returns (B, D, H, W, G) with
-    group_cor, else (B, D, H, W, C); with_fallbacks also returns the JAX
-    package's fallback count, which is always 0 here (no path falls back).
+    group_cor, else (B, D, H, W, C).
     """
     if impl not in ("fused", "warp"):
         raise ValueError(f"impl must be 'fused' or 'warp', got {impl!r}")
     if impl == "warp":
-        out = plain_cost_volume(
+        return plain_cost_volume(
             ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
             group_cor=group_cor, group_dim=group_dim, attn_temp=attn_temp,
             attn_fuse_d=attn_fuse_d, warp=warp_src_feature_vjp, sg_warp=sg_warp,
@@ -182,7 +180,7 @@ def build_cost_volume(
             src_projs = torch.stack(list(src_projs))
         if sg_warp:  # the warp reads only the source features
             src_feats = src_feats.detach()
-        out = fused_cost_volume(
+        return fused_cost_volume(
             ref_feat.contiguous(), src_feats.contiguous(), ref_proj,
             src_projs, depth_hypo.contiguous(), group_dim, attn_temp,
             attn_fuse_d, row0,
@@ -191,9 +189,8 @@ def build_cost_volume(
         # The squared-difference volume has no kernel on any device, as in
         # the JAX package (its Pallas path requires group_cor): this plain
         # formulation is the implementation, not a fallback.
-        out = plain_cost_volume(
+        return plain_cost_volume(
             ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
             group_cor=False, group_dim=group_dim, attn_temp=attn_temp,
             attn_fuse_d=attn_fuse_d, sg_warp=sg_warp, row0=row0,
         )
-    return (out, 0) if with_fallbacks else out

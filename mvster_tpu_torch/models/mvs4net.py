@@ -57,6 +57,7 @@ from mvster_tpu_torch.nn.fpn import ASFF, FPN4, FPN4ConvNeXt, FPN4ConvNeXt4
 from mvster_tpu_torch.nn.mono import MonoDepthDecoder
 from mvster_tpu_torch.nn.posenc import pos_enc_learned, pos_enc_sine
 from mvster_tpu_torch.nn.reg import Reg2d, Reg3d
+from mvster_tpu_torch.utils.profiling import span
 
 __all__ = ["MVS4Net", "MVS4NetConfig"]
 
@@ -81,7 +82,7 @@ class MVS4Net(nn.Module):
       With both, imgs hold a band of image rows and every map of the
       cascade is the band's (dist/spatial.py gives both callables).
     Returns {"stage{i}": {depth, photometric_confidence, hypo_depth,
-    attn_weight, warp_fallbacks[, inverse_min_depth, inverse_max_depth]
+    attn_weight[, inverse_min_depth, inverse_max_depth]
     [, mono_feat][, mono_depth][, debug_features, debug_proj]}} with the
     final stage's fields also at the top level; mono_depth (stages 2-4)
     only in training with config.mono.
@@ -133,7 +134,9 @@ class MVS4Net(nn.Module):
         depth_interval = (depth_values[:, -1] - depth_values[:, 0]) / k
 
         flat = imgs.reshape(b * v, h, w, imgs.shape[-1]).permute(0, 3, 1, 2).contiguous()
-        feats_flat = self.feature(flat) if resize is None else self.feature(flat, resize=resize)
+        with span("mvs.fpn"):
+            feats_flat = (self.feature(flat) if resize is None
+                          else self.feature(flat, resize=resize))
         features = {  # stage -> (B, V, Hs, Ws, C), channels-last
             key: f.permute(0, 2, 3, 1).reshape(b, v, *f.shape[2:], f.shape[1])
             for key, f in feats_flat.items()
@@ -203,20 +206,22 @@ class MVS4Net(nn.Module):
         ref_proj = composed[:, 0]
         src_projs = composed[:, 1:].transpose(0, 1)
 
-        cor, warp_fallbacks = build_cost_volume(
-            ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
-            group_cor=cfg.group_cor, group_dim=cfg.group_cor_dim[stage_idx],
-            attn_temp=cfg.attn_temp, attn_fuse_d=cfg.attn_fuse_d,
-            impl="warp" if self.training else "fused", with_fallbacks=True,
-            sg_warp="warp" in cfg.sg_cuts, row0=row0,
-        )  # (B, D, H, W, G|C)
-        if "cost_volume" in cfg.sg_cuts:
-            cor = cor.detach()
-        if cfg.pos_enc == 1:
-            cor = pos_enc_sine(cor, depth_hypo)
-        elif cfg.pos_enc == 2:
-            cor = pos_enc_learned(cor, self.pos_enc_func[stage_idx])
-        logits = self.reg[stage_idx](cor.permute(0, 4, 1, 2, 3).contiguous())
+        with span("mvs.cost_volume"):
+            cor = build_cost_volume(
+                ref_feat, src_feats, ref_proj, src_projs, depth_hypo,
+                group_cor=cfg.group_cor, group_dim=cfg.group_cor_dim[stage_idx],
+                attn_temp=cfg.attn_temp, attn_fuse_d=cfg.attn_fuse_d,
+                impl="warp" if self.training else "fused",
+                sg_warp="warp" in cfg.sg_cuts, row0=row0,
+            )  # (B, D, H, W, G|C)
+            if "cost_volume" in cfg.sg_cuts:
+                cor = cor.detach()
+            if cfg.pos_enc == 1:
+                cor = pos_enc_sine(cor, depth_hypo)
+            elif cfg.pos_enc == 2:
+                cor = pos_enc_learned(cor, self.pos_enc_func[stage_idx])
+        with span("mvs.reg"):
+            logits = self.reg[stage_idx](cor.permute(0, 4, 1, 2, 3).contiguous())
         if "logits" in cfg.sg_cuts:
             logits = logits.detach()
         attn_weight = torch.softmax(logits, dim=1)  # (B, D, H, W)
@@ -239,7 +244,6 @@ class MVS4Net(nn.Module):
             "photometric_confidence": conf,
             "hypo_depth": depth_hypo,
             "attn_weight": attn_weight,
-            "warp_fallbacks": warp_fallbacks,
         }
         if cfg.inverse_depth:
             itv = 1.0 / depth_hypo[:, 2] - 1.0 / depth_hypo[:, 1]

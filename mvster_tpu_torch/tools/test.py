@@ -25,6 +25,15 @@ forward per chunk.  It launches chunk i+1's forward before it yields chunk
 i's views, so the card runs the next forward while the caller writes the
 current views; on the CPU the outputs are the same and the overlap is gone.
 
+Under a torch.profiler session (an operator's own, or a benchmark's
+traced run) each chunk shows the port's spans (utils/profiling.py):
+`infer.h2d` (the stack, pin and non-blocking copy of its inputs),
+`infer.forward` (the eval forward's enqueue, with `mvs.fpn` and each
+stage's `mvs.cost_volume` and `mvs.reg` inside it, and the enqueue of the
+outputs' copies to the host behind it) and, when it drains, `infer.wait`
+(the wait for those copies).  Without a profiler the spans are not
+entered and cost a check of well under a microsecond each.
+
   python -m mvster_tpu_torch.tools.test --testpath $DTU_TEST \\
       --testlist lists/dtu/test.txt --loadckpt model.ckpt \\
       --interval_scale 1.06 --thres_view 4 --conf 0.5 \\
@@ -49,6 +58,7 @@ from mvster_tpu_torch.tools.cli import (
     resolve_device,
 )
 from mvster_tpu_torch.tools.weights import load_reference_ckpt
+from mvster_tpu_torch.utils.profiling import span
 
 
 class _Pending(NamedTuple):
@@ -72,37 +82,40 @@ def _dispatch(model, chunk, eval_batch, device, return_debug) -> _Pending:
         x = torch.from_numpy(np.stack(arrays))
         return (x.pin_memory() if cuda else x).to(device, non_blocking=cuda)
 
-    imgs = put([s["imgs"] for s in padded])
-    projs = {k: put([s["proj_matrices"][k] for s in padded])
-             for k in padded[0]["proj_matrices"]}
-    dv = put([s["depth_values"] for s in padded])
+    with span("infer.h2d"):
+        imgs = put([s["imgs"] for s in padded])
+        projs = {k: put([s["proj_matrices"][k] for s in padded])
+                 for k in padded[0]["proj_matrices"]}
+        dv = put([s["depth_values"] for s in padded])
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        out = model(imgs, projs, dv, return_debug=return_debug)
-        result = {"depth": out["depth"], "confidence": out["photometric_confidence"]}
-        for s in range(1, 5):
-            stage = out[f"stage{s}"]
-            result[f"stage{s}_depth"] = stage["depth"]
-            result[f"stage{s}_conf"] = stage["photometric_confidence"]
-            if return_debug:  # numpy has no bfloat16: the features go as float32
-                result[f"stage{s}_feat"] = stage["debug_features"].float()
-                result[f"stage{s}_proj"] = stage["debug_proj"]
-                result[f"stage{s}_hypo"] = stage["hypo_depth"]
-    if not cuda:
-        return _Pending(chunk, result, None, t0)
-    host = {}
-    for k, v in result.items():
-        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-        host[k].copy_(v, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record()
+    with span("infer.forward"):
+        with torch.inference_mode():
+            out = model(imgs, projs, dv, return_debug=return_debug)
+            result = {"depth": out["depth"], "confidence": out["photometric_confidence"]}
+            for s in range(1, 5):
+                stage = out[f"stage{s}"]
+                result[f"stage{s}_depth"] = stage["depth"]
+                result[f"stage{s}_conf"] = stage["photometric_confidence"]
+                if return_debug:  # numpy has no bfloat16: the features go as float32
+                    result[f"stage{s}_feat"] = stage["debug_features"].float()
+                    result[f"stage{s}_proj"] = stage["debug_proj"]
+                    result[f"stage{s}_hypo"] = stage["hypo_depth"]
+        if not cuda:
+            return _Pending(chunk, result, None, t0)
+        host = {}
+        for k, v in result.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
     return _Pending(chunk, host, copied, t0)
 
 
 def _drain(pending: _Pending) -> Iterator[tuple[dict, dict[str, Any]]]:
     """Wait for one chunk's outputs on the host; yield its real views."""
-    if pending.copied is not None:
-        pending.copied.synchronize()
+    with span("infer.wait"):
+        if pending.copied is not None:
+            pending.copied.synchronize()
     seconds = time.perf_counter() - pending.t0
     result = {k: v.numpy() for k, v in pending.host.items()}
     for i, sample in enumerate(pending.chunk):

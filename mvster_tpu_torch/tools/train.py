@@ -23,7 +23,15 @@ package's flax modules draw theirs (tools/weights.init_state_dict), or
 <logdir>/metrics.jsonl every --summary_freq steps), a checkpoint every
 --save_freq epochs ({"epoch", "model", "optimizer"}), an eval pass over the
 val list.  `--mode profile` writes a torch.profiler trace of 3 train steps
-after one warm-up step to <logdir>/profile/.
+after one warm-up step to <logdir>/profile/train_steps.json.  Beside the
+aten ops, kernels and CUDA runtime calls it holds the port's spans
+(utils/profiling.py), one each a step: `train.batch_wait` (the loader's
+next()), `train.h2d` (device_batch's copies), `train.step` (zero_grad to
+the schedule's step) and inside it `train.forward` (the model call, with
+`mvs.fpn` and each stage's `mvs.cost_volume` and `mvs.reg`), `train.loss`,
+`train.backward` and `train.optimizer` (Adam and the schedule).  The spans
+are entered only while a profiler records: without one they cost a check
+of well under a microsecond each.
 
 Data parallel, one process a card, launched by torchrun:
 
@@ -67,6 +75,7 @@ from mvster_tpu_torch.train.checkpoint import CheckpointManager
 from mvster_tpu_torch.train.logging import MetricLogger
 from mvster_tpu_torch.train.loop import device_batch, evaluate, train_epoch
 from mvster_tpu_torch.train.schedules import make_lr_factor
+from mvster_tpu_torch.utils.profiling import span
 from mvster_tpu_torch.utils.seeding import set_random_seed
 
 
@@ -105,8 +114,9 @@ def select_loss(dataset: str):
 
 
 def _profile(train_step, loader, device, logdir):
-    """One warm-up step, then a torch.profiler trace of three; every rank
-    takes the steps, rank 0 traces them."""
+    """One warm-up step, then a torch.profiler trace of three, with the
+    port's spans (utils/profiling.py); every rank takes the steps, rank 0
+    traces them."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = itertools.islice(itertools.cycle(loader), 4)
@@ -116,7 +126,9 @@ def _profile(train_step, loader, device, logdir):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     with profile(activities=activities) if is_main() else contextlib.nullcontext() as prof:
-        for batch in batches:
+        for _ in range(3):
+            with span("train.batch_wait"):
+                batch = next(batches)
             train_step(device_batch(batch, device))
         if device.type == "cuda":
             torch.cuda.synchronize()

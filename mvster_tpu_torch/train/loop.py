@@ -12,6 +12,7 @@ already the global batch's, and only rank 0 prints (`print_fn`) and logs.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable
 
@@ -19,6 +20,9 @@ import numpy as np
 import torch
 
 from mvster_tpu_torch.train.metrics import DictAverageMeter, tree_to_float
+from mvster_tpu_torch.utils.profiling import span
+
+_END = object()  # what next() returns from an exhausted loader
 
 
 def device_batch(batch, device):
@@ -29,7 +33,8 @@ def device_batch(batch, device):
             return {k: move(v) for k, v in x.items()}
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
 
-    return {k: move(v) for k, v in batch.items() if not isinstance(v, (list, str))}
+    with span("train.h2d"):
+        return {k: move(v) for k, v in batch.items() if not isinstance(v, (list, str))}
 
 
 def train_epoch(train_step: Callable, loader, epoch: int, device, logger=None,
@@ -39,7 +44,12 @@ def train_epoch(train_step: Callable, loader, epoch: int, device, logger=None,
     loader.set_epoch(epoch)
     n_batches = steps_per_epoch or len(loader)
     steps = 0
-    for batch_idx, batch in enumerate(loader):
+    batches = iter(loader)
+    for batch_idx in itertools.count():
+        with span("train.batch_wait"):
+            batch = next(batches, _END)
+        if batch is _END:
+            break
         t0 = time.time()
         global_step = n_batches * epoch + batch_idx
         scalars, images = train_step(device_batch(batch, device))

@@ -152,16 +152,6 @@ def test_train_route_matches_jax_xla_and_its_gradients():
     np.testing.assert_allclose(src.grad.numpy(), np.asarray(g_src), rtol=1e-4, atol=1e-6)
 
 
-def test_build_cost_volume_reports_no_fallbacks():
-    inp = stage_inputs(2, 64, 64, 8, 4, nsrc=1)
-    out, fallbacks = build_cost_volume(
-        t(inp["ref"]), [t(inp["src"][0])], t(inp["ref_proj"]),
-        [t(inp["src_projs"][0])], t(inp["hypo"]), group_dim=8,
-        with_fallbacks=True,
-    )
-    assert fallbacks == 0 and tuple(out.shape) == (1, 4, 64, 64, 8)
-
-
 def test_cpu_tensors_take_the_plain_version():
     inp = stage_inputs(3, 32, 32, 8, 8, nsrc=2)
     before = warp_correlate.fused_cost_volume.launches

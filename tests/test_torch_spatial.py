@@ -101,7 +101,7 @@ def _run_case(sd, sample, data, spatial, groups=None, **overrides):
 
     def recording(ref, src, *args, **kwargs):
         out = build(ref, src, *args, **kwargs)
-        volumes.append((tuple(out[0].shape), tuple(src.shape), kwargs["row0"]))
+        volumes.append((tuple(out.shape), tuple(src.shape), kwargs["row0"]))
         return out
 
     def conv_input(mod, args):  # registered before the halo hooks: the band's rows

@@ -13,8 +13,8 @@
     multiples of 64), --device cpu, 2 steps of batch 3: JSONL log and
     checkpoint written, the checkpoint reloads strictly, --resume runs the
     next epoch with Adam's state carried over, --mode profile writes a
-    torch.profiler trace; without --device, main raises on a machine with
-    no card, and so does tools.test.main.
+    torch.profiler trace that holds the port's spans; without --device,
+    main raises on a machine with no card, and so does tools.test.main.
   - the BlendedMVS fine-tune: --dataset blendedmvs picks BlendedMVSDataset
     (robust training for train only) and blend_loss; tools.train.main with
     --ot_backend pallas from a --loadckpt on a 64x128 synthetic BlendedMVS
@@ -171,7 +171,9 @@ def test_train_main_profile_mode_writes_a_trace(dtu_tree, tmp_path, monkeypatch)
                          "--device", "cpu", "--mode", "profile", *TRAIN_FLAGS])
     assert result["profile"] == os.path.join(str(tmp_path), "profile", "train_steps.json")
     trace = json.load(open(result["profile"]))
-    assert any("conv" in e.get("name", "") for e in trace["traceEvents"])
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("conv" in name for name in names)
+    assert {"train.batch_wait", "train.h2d", "train.step", "train.forward"} <= names
 
 
 def test_train_main_needs_a_card_unless_asked_for_the_cpu(dtu_tree, tmp_path):

@@ -68,9 +68,10 @@ def test_variant_eval_forward_matches_jax(name):
             t(sample["depth_values"])))
     num_stage = overrides.get("num_stage", 4)
     assert_stage_close(want, got, num_stage=num_stage)
-    assert got.keys() == want.keys()
+    # the JAX package's warp_fallbacks counts XLA fallbacks; the port has none
+    assert got.keys() == want.keys() - {"warp_fallbacks"}
     for s in range(1, num_stage + 1):
-        assert got[f"stage{s}"]["warp_fallbacks"] == 0
+        assert got[f"stage{s}"].keys() == want[f"stage{s}"].keys() - {"warp_fallbacks"}
     size = 64 // 2 ** (4 - num_stage)
     assert got["depth"].shape == (1, size, size)
     assert got["photometric_confidence"].shape == (1, 64, 64)
