@@ -215,6 +215,19 @@ Phases, one line each, any failure exits non-zero:
      4 K5 launches a rank, ranks bitwise equal; (c) K1 on the last of 2
      and of 4 bands, and K2-K5 on the last of 2, of the DTU-mid stages
      against plain
+ 25. K6 (the planar convs' weight gradient) at each of Reg2d's 7 planar
+     convs at the four stages of the DTU-mid and the 576x768 train steps
+     (batch 2) and on two band shapes of make_spatial_train_step (conv0
+     without row padding, the transposed conv11 before its crop), on
+     random inputs: the same bits from two launches, against its plain
+     version grouped as the kernel groups its partial sums, and, with
+     cuDNN's weight gradient (autograd's call, which the port no longer
+     makes for these convs), against the plain version in float64, per
+     conv: K6 within twice cuDNN's relative L2 distance; K6 and cuDNN
+     timed queued, the plain version back to back, beside the bound
+     (a line a conv).  Phase 8 counts 28
+     K6 launches a step.  `python3 chip_smoke.py k6` runs phases 1, 2 and
+     25 alone.
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -230,7 +243,8 @@ max_abs_err_by_path) and sg_cuts (K2-K5)), and phase 23's:
 spatial_train (K2-K5 over the ranks of its runs; their band errors under
 max_abs_err_by_path) and spatial_train_serve (K1, (c)), and phase 24's:
 spatial_variants_serve (K1) and spatial_variants_train (K2-K5), over the
-ranks, their band errors under max_abs_err_by_path, and
+ranks, their band errors under max_abs_err_by_path; K6's times are the
+DTU-mid step's 28 convs, its launches phase 8's), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -279,7 +293,13 @@ from mvster_tpu_torch.core.geometry import plane_sweep_coords  # noqa: E402
 from mvster_tpu_torch.core.sampling import bilinear_taps  # noqa: E402
 from mvster_tpu_torch.dist.train_step import make_train_step  # noqa: E402
 from mvster_tpu_torch.infer.ply import read_ply  # noqa: E402
-from mvster_tpu_torch.kernels import _build, sinkhorn_ot, warp_correlate, warp_vjp  # noqa: E402
+from mvster_tpu_torch.kernels import (  # noqa: E402
+    _build,
+    conv_wgrad,
+    sinkhorn_ot,
+    warp_correlate,
+    warp_vjp,
+)
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig  # noqa: E402
 from mvster_tpu_torch.tools.test import infer_views  # noqa: E402
 from mvster_tpu_torch.tools.weights import (  # noqa: E402
@@ -334,6 +354,10 @@ OFF_D = [1, 2, 3, 5, 16, 31, 32, 33, 64]  # K4/K5: every capacity, D below it
 OFF_OT_SHAPES = [(31, 37), (256, 320), (64, 80)]
 OFF_CONFIG = dict(stage_splits=(16, 8, 4, 4), group_cor_dim=(16, 8, 4, 2))
 OFF_H, OFF_W, OFF_VIEWS = 128, 192, 3
+K6 = dict(name="conv_wgrad", route="cuda", source="mvster_tpu_torch/csrc/conv_wgrad.cu",
+          replaces=None)
+K6_PER_STEP = 28  # Reg2d's 7 planar convs x 4 stages
+K6_ENTRY = "k6"  # `python3 chip_smoke.py k6`: phases 1, 2 and 25 alone
 # phases 17-19: the serving path through tools.test.main.  DTU's published
 # 1200x1600 images at the CLI's default --max_h 864 --max_w 1152, which the
 # loader snaps down to multiples of 64: 832x1152; 7 views of a scan's 49; a
@@ -591,11 +615,13 @@ def phase8_train(dev, tmp, card):
     argv = ["--trainpath", root, "--trainlist", f"{root}/train.txt",
             "--testlist", f"{root}/train.txt", "--logdir", logdir, *TRAIN_FLAGS]
     warp_vjp.warp_gather.launches = warp_vjp.scatter_grad.launches = 0
+    conv_wgrad.conv_wgrad.launches = 0
     t0 = time.perf_counter()
     result = train.main(argv)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     k2, k3 = warp_vjp.warp_gather.launches, warp_vjp.scatter_grad.launches
+    k6 = conv_wgrad.conv_wgrad.launches
     steps = result["steps"]
     if steps != NVIEWS * 7 // BATCH:
         raise AssertionError(f"{steps} train steps, expected {NVIEWS * 7 // BATCH}")
@@ -603,6 +629,8 @@ def phase8_train(dev, tmp, card):
     if k2 != per_step * steps or k3 != per_step * steps:
         raise AssertionError(f"K2 {k2} / K3 {k3} launches for {steps} steps, "
                              f"expected {per_step} each per step")
+    if k6 != K6_PER_STEP * steps:
+        raise AssertionError(f"K6 {k6} launches for {steps} steps, expected {K6_PER_STEP} a step")
     records = _jsonl(os.path.join(logdir, "metrics.jsonl"))
     losses = [r["loss"] for r in records if r["mode"] == "train"]
     if len(losses) != steps or not np.isfinite(losses).all():
@@ -635,11 +663,12 @@ def phase8_train(dev, tmp, card):
     log(f"[8 train] tools.train.main: {steps} steps of batch {BATCH} at {H}x{W}, "
         f"{NVIEWS} views + a val pass in {train_s:.1f} s (tree written in {tree_s:.1f} s); "
         f"loss {losses[0]:.3f} -> {losses[-1]:.3f}, val loss {val[0]['loss']:.3f}; "
-        f"K2 {k2} and K3 {k3} launches ({per_step} per step); {len(moved)} of "
+        f"K2 {k2} and K3 {k3} launches ({per_step} per step), K6 {k6} ({K6_PER_STEP}); "
+        f"{len(moved)} of "
         f"{len(params)} parameter tensors moved (the mono decoder's, weighted 0, did "
         f"not); the checkpoint loaded strictly and served a request through "
         f"{k1} K1 launches in {1e3 * served[0][1]['seconds']:.2f} ms | {card}")
-    return k2, k3, root, result["checkpoint"]
+    return k2, k3, k6, root, result["checkpoint"]
 
 
 def phase9_card_vs_cpu(dev):
@@ -3613,6 +3642,120 @@ def phase24_spatial_variants(dev, tmp, root, card):
     return serve_totals, train_totals, k1_err, band_err
 
 
+def k6_shapes(h, w, stages=((8, 8), (8, 8), (4, 4), (4, 4)), b=BATCH):
+    """Reg2d's seven planar convs at each stage of an h x w train step:
+    (name, transposed, M, C, stride, padding, g's shape, x's shape) as K6
+    takes them (a transposed conv's input is g, its output gradient x)."""
+    out = []
+    for s, (d, g) in enumerate(stages):
+        hs, ws = h >> (3 - s), w >> (3 - s)
+        lv = [(hs >> k, ws >> k) for k in range(4)]
+        out.append((f"s{s + 1}.conv0", False, 8, g, 1, (1, 1), (b, 8, d, *lv[0]), (b, g, d, *lv[0])))
+        for k, (name, tname) in enumerate((("conv1", "conv11"), ("conv3", "conv9"),
+                                           ("conv5", "conv7"))):
+            m, c = 16 << k, 8 << k
+            gs, xs = (b, m, d, *lv[k + 1]), (b, c, d, *lv[k])
+            out.append((f"s{s + 1}.{name}", False, m, c, 2, (1, 1), gs, xs))
+            out.append((f"s{s + 1}.{tname}", True, m, c, 2, (1, 1), gs, xs))
+    return out
+
+
+# make_spatial_train_step's stage 4 at 512x640 in 2 bands: conv0 on a band
+# of 256 rows with its two halo rows (no row padding), and conv11 (the
+# transposed conv) on 128 rows and its halo row, before the crop
+K6_BANDS = [("band.conv0", False, 8, 4, 1, (0, 1), (BATCH, 8, 4, 256, 640), (BATCH, 4, 4, 258, 640)),
+            ("band.conv11", True, 16, 8, 2, (1, 1), (BATCH, 16, 4, 129, 320),
+             (BATCH, 8, 4, 257, 640))]
+
+
+def _k6_library(transposed, g, x, stride, padding, m, c):
+    """cuDNN's weight gradient of the same conv (autograd's call)."""
+    w = torch.empty(m, c, 1, 3, 3, device=g.device)
+    s, p = (1, stride, stride), (0, *padding)
+    if transposed:  # the conv's input g, its output gradient x
+        op = tuple(x.shape[i] - ((g.shape[i] - 1) * stride - 2 * padding[i - 3] + 3)
+                   for i in (3, 4))
+        return torch.ops.aten.convolution_backward(
+            x, g, w, None, s, p, (1, 1, 1), True, (0, *op), 1, [False, True, False])[1]
+    return torch.ops.aten.convolution_backward(
+        g, x, w, None, s, p, (1, 1, 1), False, (0, 0, 0), 1, [False, True, False])[1]
+
+
+def phase25_k6(dev, card):
+    """K6 at every planar conv of the DTU-mid and 576x768 train steps and
+    on two band shapes: against its plain version (grouped as the kernel
+    groups its partial sums) and, with cuDNN's weight gradient, against
+    the plain version in float64, per leaf; times queued (K6, cuDNN) and
+    back to back (plain), the bound.  Returns the step sums."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    lines, sums, worst, max_abs = [], {}, [], 0.0
+    cells = [("dtu-mid", k6_shapes(H, W)), ("blendedmvs", k6_shapes(BLEND_H, BLEND_W)),
+             ("band", K6_BANDS)]
+    for cell, shapes in cells:
+        tot = dict(k6=0.0, bound=0.0, plain=0.0, library=0.0)
+        for name, transposed, m, c, stride, padding, gs, xs in shapes:
+            g = torch.randn(gs, generator=gen, device=dev)
+            x = torch.randn(xs, generator=gen, device=dev)
+            nb = conv_wgrad.plan_blocks(gs, c, stride, dev)
+            got = conv_wgrad.conv_wgrad(g, x, stride, padding)
+            again = conv_wgrad.conv_wgrad(g, x, stride, padding)
+            plain = conv_wgrad.conv_wgrad_plain(g, x, stride, padding, blocks=nb)
+            lib = _k6_library(transposed, g, x, stride, padding, m, c)
+            f64 = conv_wgrad.conv_wgrad_plain(g.double(), x.double(), stride, padding)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K6 {name}: two launches differ")
+            ref = f64.norm().item()
+            d_k6 = (got.double() - f64).norm().item() / ref
+            d_lib = (lib.double() - f64).norm().item() / ref
+            err = (got - plain).abs().max().item()
+            max_abs = max(max_abs, err)
+            d_plain = err / f64.abs().max().item()
+            worst.append((d_k6 / d_lib, cell, name))
+            k6_ms = queued_ms(lambda: conv_wgrad.conv_wgrad(g, x, stride, padding), 20)
+            lib_ms = queued_ms(lambda: _k6_library(transposed, g, x, stride, padding, m, c), 5)
+            plain_ms = cuda_ms(lambda: conv_wgrad.conv_wgrad_plain(g, x, stride, padding,
+                                                                   blocks=nb), 3, warmup=1)
+            k = gs[0] * gs[2] * gs[3] * gs[4]
+            b_ms, b_by = bound(4 * (g.numel() + x.numel() + m * c * 9), 2 * m * c * 9 * k)
+            for key, v in (("k6", k6_ms), ("bound", b_ms), ("plain", plain_ms),
+                           ("library", lib_ms)):
+                tot[key] += v
+            lines.append(f"{cell} {name}{' (T)' if transposed else ''}: g {tuple(gs)} x "
+                         f"{tuple(xs)} s{stride} pad {padding}: K6 {k6_ms:.4f} ms, bound "
+                         f"{b_ms:.4f} ({b_by}), plain {plain_ms:.3f}, cuDNN {lib_ms:.3f}; "
+                         f"|d| from f64 K6 {d_k6:.3e} cuDNN {d_lib:.3e}; K6-plain "
+                         f"{d_plain:.2e}; {nb} blocks")
+            del g, x, got, again, plain, lib, f64
+        sums[cell] = tot
+        log(f"[25 K6] {cell}: {len(shapes)} convs, K6 {tot['k6']:.3f} ms, bound "
+            f"{tot['bound']:.4f}, plain {tot['plain']:.2f}, cuDNN {tot['library']:.2f} | {card}")
+    for line in lines:
+        log("  " + line)
+    ratio, cell, name = max(worst)
+    if ratio > 2.0:
+        raise AssertionError(f"K6 {cell} {name}: {ratio:.2f}x cuDNN's distance from float64")
+    log(f"[25 K6] the same bits twice at every shape; the widest K6 distance from float64 "
+        f"is {ratio:.2f}x cuDNN's ({cell} {name})")
+    return sums, max_abs
+
+
+def k6_entry():
+    """Phases 1, 2 and 25 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__}")
+    _build.build()
+    _build.load_library()
+    log(f"[2 build] nvcc {_build.build_seconds} s")
+    phase25_k6(torch.device("cuda"), card)
+    return 0
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3723,7 +3866,7 @@ def main():
     rates, sms, mhz = clock_rates()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         costs = math_costs(tmp)
-        k2_launches, k3_launches, root, ckpt = phase8_train(dev, tmp, card)
+        k2_launches, k3_launches, k6_launches, root, ckpt = phase8_train(dev, tmp, card)
         phase9_card_vs_cpu(dev)
         phase10_learns(dev)
         sums, by2, by3 = phase11_times(dev, root, per_stage, card)
@@ -3754,6 +3897,8 @@ def main():
         # 24: every variant through both spatial steps, from phase 8's tree
         sv_serve, sv_train, sv_k1_err, (sv_err2, sv_err3, sv_err4, sv_err5) = (
             phase24_spatial_variants(dev, tmp, root, card))
+    # 25: K6 at the train cells' planar convs
+    k6_sums, k6_err = phase25_k6(dev, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -3810,6 +3955,10 @@ def main():
                               "spatial_variants_train": sv_train["K5"]},
              max_abs_err_by_path={"train": err5, "spatial_train": st_err5,
                                   "spatial_variants_train": sv_err5}),
+        dict(K6, launches=k6_launches, max_abs_err=k6_err, ms=k6_sums["dtu-mid"]["k6"],
+             plain_ms=k6_sums["dtu-mid"]["plain"], bound_ms=k6_sums["dtu-mid"]["bound"],
+             library_ms=k6_sums["dtu-mid"]["library"],
+             launches_by_path={"train": k6_launches}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3817,6 +3966,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [K6_ENTRY]:
+        sys.exit(k6_entry())
     if sys.argv[1:2] == [DDP_ENTRY]:
         sys.exit(ddp_entry(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [GLOO_RANK]:

@@ -188,6 +188,17 @@ def load_library() -> ctypes.CDLL:
             p,                          # cudaStream_t
         ]
         lib.mvster_sinkhorn_bwd.restype = i
+        ll = ctypes.c_longlong
+        lib.mvster_conv_wgrad.argtypes = [
+            p, p, p, p,                 # g, x, part, dw
+            i, i, i, i, i,              # B, D, M, C, stride
+            i, i, i, i, i, i,           # Ho, Wo, Hi, Wi, ph, pw
+            ll, ll, ll, ll, ll,         # g's strides
+            ll, ll, ll, ll, ll,         # x's strides
+            i, i, i,                    # tile rows, tile columns, blocks
+            p,                          # cudaStream_t
+        ]
+        lib.mvster_conv_wgrad.restype = i
         lib.mvster_cuda_error_string.argtypes = [i]
         lib.mvster_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

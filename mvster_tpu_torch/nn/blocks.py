@@ -23,6 +23,14 @@ of squares and count, the variance as flax's E[x^2] - E[x]^2, and the
 gradient through the sums (dist/reduce.AllSum).  The same arithmetic runs
 where a channel holds one value (Reg3d's deepest level at small sizes):
 flax's mean x and variance 0, where F.batch_norm refuses.
+
+Planar convolutions in training: a float32 Conv3d or ConvTranspose3d
+with a (1, 3, 3) kernel (Reg2d's conv0/1/3/5 and conv7/9/11) on a CUDA
+tensor, while autograd records and its weight needs a gradient, runs
+through `PlanarConv`: the same cuDNN forward and input gradient as
+autograd's, and the weight gradient from K6 (kernels/conv_wgrad.py), in
+place of cuDNN's, which runs these shapes at ~0.1% of the card's FP32
+peak.  `takes_k6` is the rule; every other conv keeps autograd's path.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from mvster_tpu_torch.dist.mesh import world_size
 from mvster_tpu_torch.dist.reduce import AllSum
+from mvster_tpu_torch.kernels import conv_wgrad
 
 
 class _FlaxStats:
@@ -118,13 +127,80 @@ class Conv2d(_ComputeDtype, nn.Conv2d):
         return self._run(self._conv_forward, x)
 
 
+def planar_f32(conv: nn.Module) -> bool:
+    """Whether `conv` is a planar conv K6 computes the weight gradient of:
+    a Conv3d or ConvTranspose3d computing in float32, kernel (1, 3, 3),
+    stride (1, 1, 1) or (1, 2, 2), padding (0, 0 or 1, 0 or 1) (a band's
+    convs pad no rows), no groups, dilation or bias, and channels that K6
+    has an instance for."""
+    if not isinstance(conv, (Conv3d, ConvTranspose3d)):
+        return False
+    transposed = isinstance(conv, ConvTranspose3d)
+    m, c = ((conv.in_channels, conv.out_channels) if transposed
+            else (conv.out_channels, conv.in_channels))
+    s = conv.stride
+    return (conv.compute_dtype in (None, torch.float32)
+            and tuple(conv.kernel_size) == (1, 3, 3)
+            and tuple(s) in ((1, 1, 1), (1, 2, 2))
+            and isinstance(conv.padding, tuple) and conv.padding[0] == 0
+            and all(p in (0, 1) for p in conv.padding[1:])
+            and (not transposed or conv.output_padding[0] == 0)
+            and conv.groups == 1 and tuple(conv.dilation) == (1, 1, 1)
+            and conv.bias is None and conv.padding_mode == "zeros"
+            and conv_wgrad.supported(s[1], m, c))
+
+
+def takes_k6(conv: nn.Module, x: torch.Tensor) -> bool:
+    """The rule: a planar float32 conv (planar_f32) on a float32 CUDA
+    tensor, while autograd records and the weight needs its gradient."""
+    return (torch.is_grad_enabled() and x.is_cuda and x.dtype == torch.float32
+            and conv.weight.requires_grad and planar_f32(conv))
+
+
+class PlanarConv(torch.autograd.Function):
+    """A planar conv whose forward is the cuDNN call the module makes,
+    whose input gradient is autograd's cuDNN call with the weight's left
+    out, and whose weight gradient is K6; it saves what autograd's
+    convolution saves (the input and the weight).  Stride, padding and
+    output padding are taken when the forward runs (a band's halo hooks
+    change them only for the step)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, output_padding, transposed):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, output_padding, transposed)
+        if transposed:
+            return F.conv_transpose3d(x, weight, None, stride, padding, output_padding)
+        return F.conv3d(x, weight, None, stride, padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        stride, padding, output_padding, transposed = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.ops.aten.convolution_backward(
+                gy, x, weight, None, stride, padding, (1, 1, 1), transposed,
+                output_padding, 1, [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            g, big = (x, gy) if transposed else (gy, x)
+            gw = conv_wgrad.conv_wgrad(g, big, stride[1], padding[1:])
+        return gx, gw, None, None, None, None
+
+
 class Conv3d(_ComputeDtype, nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if takes_k6(self, x):
+            return PlanarConv.apply(x, self.weight, tuple(self.stride), tuple(self.padding),
+                                    (0, 0, 0), False)
         return self._run(self._conv_forward, x)
 
 
 class ConvTranspose3d(_ComputeDtype, nn.ConvTranspose3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if takes_k6(self, x):
+            return PlanarConv.apply(x, self.weight, tuple(self.stride), tuple(self.padding),
+                                    tuple(self.output_padding), True)
         return self._run(lambda x, w, b: F.conv_transpose3d(
             x, w, b, self.stride, self.padding, self.output_padding, self.groups,
             self.dilation), x)
