@@ -51,7 +51,6 @@ import numpy as np
 import torch
 
 from mvsbench.reference import losses as ref_losses
-from mvsbench.reference import model as ref_model
 
 
 def _tensor(x, device):
@@ -65,21 +64,22 @@ def serve_inputs(sample, device):
 
 
 @torch.no_grad()
-def judge_view(sd, cfg, sample, answer, device) -> dict:
+def judge_view(ref, sd, cfg, sample, answer, device) -> dict:
     """answer: stage{s}_depth (1, h_s, w_s), stage{s}_conf (1, H, W) for
-    s = 1..3, and depth, confidence (1, H, W) for stage 4 (numpy)."""
+    s = 1..3, and depth, confidence (1, H, W) for stage 4 (numpy); judged
+    by the reference module `ref` at its cfg."""
     imgs, projs, dv = serve_inputs(sample, device)
     depths = {f"stage{s}": _tensor(answer[f"stage{s}_depth"], device) for s in (1, 2, 3)}
     depths["stage4"] = _tensor(answer["depth"], device)
     confs = {f"stage{s}": _tensor(answer[f"stage{s}_conf"], device) for s in (1, 2, 3)}
     confs["stage4"] = _tensor(answer["confidence"], device)
-    outs, _ = ref_model.forward(sd, cfg, imgs, projs, dv, stage_depths=depths)
+    outs, _ = ref.forward(sd, cfg, imgs, projs, dv, stage_depths=depths)
     gaps, offs, confd = [], [], []
-    for key, ref in outs.items():
-        gap, off = pick_gaps(ref["hypo"], ref["attn"], depths[key])
+    for key, out in outs.items():
+        gap, off = pick_gaps(out["hypo"], out["attn"], depths[key])
         gaps.append(gap)
         offs.append(off)
-        confd.append((confs[key] - ref["confidence"]).abs().flatten())
+        confd.append((confs[key] - out["confidence"]).abs().flatten())
     gaps, offs, confd = torch.cat(gaps), torch.cat(offs), torch.cat(confd)
     return {"depth_gap": float(gaps.max()), "conf_gap": float(confd.max()),
             "depth_gap_p9999": _quantile(gaps, 0.9999), "conf_gap_p999": _quantile(confd, 0.999),
@@ -104,18 +104,18 @@ def _quantile(x, q):
     return float(torch.kthvalue(x.float().cpu(), k).values)
 
 
-def judge_views(sd, cfg, judged, device) -> dict:
+def judge_views(ref, sd, cfg, judged, device) -> dict:
     """The widest of each number over [(sample, answer)]; NaN where an
     answer holds a NaN."""
-    views = [judge_view(sd, cfg, sample, answer, device) for sample, answer in judged]
+    views = [judge_view(ref, sd, cfg, sample, answer, device) for sample, answer in judged]
     return {k: math.nan if any(math.isnan(v[k]) for v in views) else max(v[k] for v in views)
             for k in views[0]}
 
 
 @torch.no_grad()
-def reference_answer(sd, cfg, sample, device) -> dict:
+def reference_answer(ref, sd, cfg, sample, device) -> dict:
     """The reference's own answer, as infer_views gives one (for the control)."""
-    outs, _ = ref_model.forward(sd, cfg, *serve_inputs(sample, device))
+    outs, _ = ref.forward(sd, cfg, *serve_inputs(sample, device))
     ans = {}
     for s in (1, 2, 3, 4):
         o = outs[f"stage{s}"]
@@ -181,8 +181,8 @@ def judge_steps(program: dict, reference: dict) -> dict:
     return out
 
 
-def reference_steps(sd, cfg, batches, lr, iters, device, stage_depths=None) -> dict:
-    """The reference's Adam steps on `batches` (loader batches) from sd;
+def reference_steps(ref, sd, cfg, batches, lr, iters, device, stage_depths=None) -> dict:
+    """The reference module's Adam steps on `batches` (loader batches) from sd;
     each step on the windows of the given stage depths where they cover
     its batch (a program's, so that a near-tied argmax that float32 may
     flip either way moves neither side's windows), else on its own."""
@@ -194,7 +194,7 @@ def reference_steps(sd, cfg, batches, lr, iters, device, stage_depths=None) -> d
                   if d["stage1"].shape[0] == b["imgs"].shape[0] else None
                   for d, b in zip(stage_depths, dev_batches)]
     losses, grads, params, depths, volumes = ref_losses.train_steps(
-        sd, cfg, dev_batches, lr=lr, iters=iters, stage_depths=forced)
+        ref.forward, sd, cfg, dev_batches, lr=lr, iters=iters, stage_depths=forced)
     change = {k: params[k] - sd[k] for k in params}
     return {"losses": losses, "grad_norms": norms(grads), "change_norms": norms(change),
             "stage_depths": [{k: v.cpu() for k, v in d.items()} for d in depths],

@@ -89,17 +89,15 @@ class Readings:
 
     trace: mvsbench.trace.Trace of the sub-window (None when untraced);
     units: the forwards or steps in it; flops: the reference's FLOPs a
-    unit; least: {kernel: least seconds a unit} (work.least_seconds);
-    host: {span: [seconds, one a traced unit]} of the harness's host-clock
-    spans; cell: the cell.
+    unit; host: {span: [seconds, one a traced unit]} of the harness's
+    host-clock spans; cell: the cell.
     """
 
-    def __init__(self, cell, trace, flops, least, host):
+    def __init__(self, cell, trace, flops, host):
         self.cell = cell
         self.trace = trace
         self.units = trace.units if trace is not None else 0
         self.flops = flops
-        self.least = least
         self.host = host
 
     def per_unit_s(self, name_filter, range_name=None):
@@ -114,13 +112,13 @@ class Readings:
             return None
         return sum(op[2] for op in ops) * 1e-6 / self.units
 
-    def roofline_pct(self, kernel, name_filter):
-        """The kernel's least time a unit over its device time a unit, in %."""
+    def roofline_pct(self, least_s, name_filter):
+        """A kernel's least seconds a unit over the device seconds a unit of
+        the matching kernels, in %."""
         t = self.per_unit_s(name_filter)
-        least = self.least.get(kernel)
-        if t is None or not least:
+        if t is None or not least_s:
             return None
-        return 100.0 * least / t
+        return 100.0 * least_s / t
 
     def unit_s(self):
         """Seconds a unit in the traced window."""

@@ -8,7 +8,7 @@ For each seed the program runs as a run of the cell does (set-up, a short
 window at the cell's load, the check) and its numbers are read.  The
 control is the reference put in the program's place and computed in the
 nearest precision below the configuration's (float32 with TF32 off):
-every convolution from TF32 operands (reference.model.Config.lower).  A
+every convolution from TF32 operands (the reference's `cfg.lower`).  A
 training cell also reads the fault of half of each batch left out (the
 reference on the first half of each batch's rows, the mean over those).
 Each is judged by the same comparison as the program, against the float32
@@ -28,8 +28,6 @@ import torch
 from mvsbench import check, traffic
 from mvsbench.cells import Cell
 from mvsbench.common import free_cuda, process_start, say
-from mvsbench.reference.model import state_shapes
-from mvsbench.weights import seeded_state_dict
 
 
 def lowered(cfg):
@@ -46,11 +44,11 @@ def program(cell, seed, seconds, device) -> dict:
 
 
 def serve_control(cell, seed, device) -> dict:
-    sd = seeded_state_dict(state_shapes(cell.ref_config), seed, device)
+    ref, sd = cell.reference, cell.weights(seed, device)
     samples = traffic.pool(cell.traffic, seed)[:cell.traffic["check_views"]]
     low = lowered(cell.ref_config)
-    answers = [check.reference_answer(sd, low, s, device) for s in samples]
-    return check.judge_views(sd, cell.ref_config, list(zip(samples, answers)), device)
+    answers = [check.reference_answer(ref, sd, low, s, device) for s in samples]
+    return check.judge_views(ref, sd, cell.ref_config, list(zip(samples, answers)), device)
 
 
 def half(batch):
@@ -62,7 +60,7 @@ def half(batch):
 def train_controls(cell, seed, device) -> dict:
     from mvsbench.drivers.train import loader_of
 
-    sd = seeded_state_dict(state_shapes(cell.ref_config), seed, device)
+    ref, sd = cell.reference, cell.weights(seed, device)
     loader = loader_of(cell, seed)
     loader.set_epoch(0)
     batches = []
@@ -72,14 +70,15 @@ def train_controls(cell, seed, device) -> dict:
             break
     lr = float(cell.config["train"]["lr"])
     iters = int(cell.config["train"]["ot_iter"])
-    ref = check.reference_steps(sd, cell.ref_config, batches, lr, iters, device)
-    halved = check.reference_steps(sd, cell.ref_config, [half(b) for b in batches], lr,
+    sound = check.reference_steps(ref, sd, cell.ref_config, batches, lr, iters, device)
+    halved = check.reference_steps(ref, sd, cell.ref_config, [half(b) for b in batches], lr,
                                    iters, device)
-    low = check.reference_steps(sd, lowered(cell.ref_config), batches, lr, iters, device)
+    low = check.reference_steps(ref, sd, lowered(cell.ref_config), batches, lr, iters, device)
     # judged as a run judges the program: the reference on the control's windows
-    ref_low = check.reference_steps(sd, cell.ref_config, batches, lr, iters, device,
+    ref_low = check.reference_steps(ref, sd, cell.ref_config, batches, lr, iters, device,
                                     low["stage_depths"])
-    return {"tf32": check.judge_steps(low, ref_low), "half_batch": check.judge_steps(halved, ref)}
+    return {"tf32": check.judge_steps(low, ref_low),
+            "half_batch": check.judge_steps(halved, sound)}
 
 
 def main(argv=None):

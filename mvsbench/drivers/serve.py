@@ -27,22 +27,26 @@ import torch
 from mvsbench import check, traffic, work
 from mvsbench.cells import flags
 from mvsbench.common import Readings, free_cuda, say
-from mvsbench.reference.model import state_shapes
 from mvsbench.trace import UNIT, Profiler, Ranges, warm
-from mvsbench.weights import seeded_state_dict
 
 
-def build(cell, seed, device):
+def port_model(config: dict):
+    """The port's model of a configuration's `model`, as tools.test.main
+    builds it: the flags through the port's test parser."""
     from mvster_tpu_torch.models.mvs4net import MVS4Net
     from mvster_tpu_torch.tools.cli import build_test_parser, model_config_from_args
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     args = build_test_parser().parse_args(
         ["--testpath", ".", "--testlist", "scan1", "--loadckpt", "seeded",
-         "--device", device.type, *flags(cell.config["model"])])
-    sd = seeded_state_dict(state_shapes(cell.ref_config), seed, device)
-    model = MVS4Net(model_config_from_args(args))
+         *flags(config["model"])])
+    return MVS4Net(model_config_from_args(args))
+
+
+def build(cell, seed, device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sd = cell.weights(seed, device)
+    model = port_model(cell.config)
     model.load_state_dict(sd, strict=True)
     return model.to(device).eval(), sd
 
@@ -120,18 +124,13 @@ def run(cell, seed, seconds, trace, device, t_start):
         if prof.running:
             prof.stop()
         tr = prof.trace()
-        c = cell.ref_config
-        readings = Readings(cell, tr,
-                            flops=work.reference_flops(c, t["height"], t["width"], t["views"],
-                                                       t["batch"], train=False),
-                            least={"k1": work.least_seconds(
-                                "k1", work.stage_shapes(t["height"], t["width"], c),
-                                t["batch"], t["views"])},
-                            host={})
+        flops = work.reference_flops(cell.reference, cell.ref_config, t["height"], t["width"],
+                                     t["views"], t["batch"], train=False)
+        readings = Readings(cell, tr, flops=flops, host={})
     del model
     free_cuda()
     t2 = time.perf_counter()
-    values = check.judge_views(sd, cell.ref_config, kept, device)
+    values = check.judge_views(cell.reference, sd, cell.ref_config, kept, device)
     say(f"check: {len(kept)} views in {time.perf_counter() - t2:.2f} s")
     return {"attempted": len(handed), "failed": len(handed) - views, "e2e": e2e,
             "values": values, "memory_peak_bytes": max(setup_peak, window_peak),

@@ -34,9 +34,7 @@ import torch
 from mvsbench import check, traffic, work
 from mvsbench.cells import flags
 from mvsbench.common import Readings, cpu_seconds, free_cuda, quartiles, say
-from mvsbench.reference.model import state_shapes
 from mvsbench.trace import Profiler, unit_range, warm
-from mvsbench.weights import seeded_state_dict
 
 CHECKED_STEPS = 3
 ADAM_BETA1 = 0.9
@@ -214,7 +212,7 @@ def train_window(cell, seed, seconds, trace, device, t_start):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = parse(cell)
-    sd = seeded_state_dict(state_shapes(cell.ref_config), seed, device)
+    sd = cell.weights(seed, device)
     model = MVS4Net(model_config_from_args(args))
     model.load_state_dict(sd, strict=True)
     model.to(device)
@@ -289,20 +287,17 @@ def train_window(cell, seed, seconds, trace, device, t_start):
 
 def readings(cell, out):
     """The traced sub-window's Readings."""
-    t, c = cell.traffic, cell.ref_config
+    t = cell.traffic
     step, feed = out["step"], out["feed"]
     if step.prof is None:
         return None
     tr = step.prof.trace()
     a = step.trace_first
-    shapes = work.stage_shapes(t["height"], t["width"], c)
-    iters = out["args"].ot_iter
-    least = {k: work.least_seconds(k, shapes, t["batch"], t["views"], iters)
-             for k in ("k2", "k3", "k4", "k5")}
-    flops = work.reference_flops(c, t["height"], t["width"], t["views"], t["batch"], train=True)
+    flops = work.reference_flops(cell.reference, cell.ref_config, t["height"], t["width"],
+                                 t["views"], t["batch"], train=True)
     host = {"input_wait": feed.waits[a:a + step.trace_count],
             "step": step.host[a:a + step.trace_count]}
-    return Readings(cell, tr, flops=flops, least=least, host=host)
+    return Readings(cell, tr, flops=flops, host=host)
 
 
 def run(cell, seed, seconds, trace, device, t_start):
@@ -314,8 +309,8 @@ def run(cell, seed, seconds, trace, device, t_start):
     del out
     free_cuda()
     t2 = time.perf_counter()
-    ref = check.reference_steps(sd, cell.ref_config, batches, args.lr, args.ot_iter, device,
-                                first["stage_depths"])
+    ref = check.reference_steps(cell.reference, sd, cell.ref_config, batches, args.lr,
+                                args.ot_iter, device, first["stage_depths"])
     result["values"] = check.judge_steps(first, ref)
     say(f"check: {len(batches)} reference steps in {time.perf_counter() - t2:.2f} s")
     return result

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from mvsbench.reference.model import forward
-
 
 def sinkhorn_loss(gt, hypo, attn, mask, iters=10, eps=1.0):
     """Masked mean over pixels of <T, C> between attn (B, D, H, W) and the
@@ -73,17 +71,17 @@ def warmup_factor(step, warmup_iters=500, start=1.0 / 3):
     return start * (1.0 - alpha) + alpha
 
 
-def train_steps(sd, cfg, batches, lr=1e-3, betas=(0.9, 0.999), adam_eps=1e-8,
+def train_steps(forward, sd, cfg, batches, lr=1e-3, betas=(0.9, 0.999), adam_eps=1e-8,
                 iters=10, stage_depths=None):
-    """Adam steps of the cascade and its loss from the state dict sd, one a
-    batch (dicts of tensors: imgs, proj_matrices, depth_values, depth,
-    mask).  `stage_depths`, one {stage: depth} a step or None, replays a
-    trained cascade's windows (model.forward).  Returns (losses, grads,
-    params, depths, volumes): each step's [total, OT terms] as floats, the
-    first step's gradient of every parameter, the parameters after the
-    last step, each step's stage depths, and each step's {stage: (hypo,
-    attn)}.  Buffers (the BatchNorm running
-    statistics) are left as they are: training normalises by the batch."""
+    """Adam steps of a reference's cascade (its `forward`) and the loss from
+    the state dict sd, one a batch (dicts of tensors: imgs, proj_matrices,
+    depth_values, depth, mask).  `stage_depths`, one {stage: depth} a step
+    or None, replays a trained cascade's windows (model.forward).  Returns
+    (losses, grads, params, depths, volumes): each step's [total, OT terms]
+    as floats, the first step's gradient of every parameter, the parameters
+    after the last step, each step's stage depths, and each step's {stage:
+    (hypo, attn)}.  Buffers (the BatchNorm running statistics) are left as
+    they are: training normalises by the batch."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in sd.items()
               if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
     buffers = {k: v for k, v in sd.items() if k not in params}

@@ -41,6 +41,12 @@ import torch.nn.functional as F
 BN_EPS = 1e-5
 MONO_OUT = (32, 16, 8)
 
+# the configuration's model keys this reference reads (None) or computes at
+# one value only
+MODEL_KEYS = {"ndepths": None, "depth_inter_r": None, "group_cor_dim": None,
+              "fpn_base_channel": None, "reg_channel": None, "attn_temp": None, "mono": None,
+              "group_cor": True, "inverse_depth": True, "compute_dtype": "float32"}
+
 
 class Config:
     """The settings of the cascade that the reference reads."""
@@ -56,6 +62,16 @@ class Config:
         self.attn_temp = attn_temp
         self.mono = mono
         self.lower = lower
+
+
+def config(model: dict) -> Config:
+    """The Config of a configuration's `model` (the port's CLI flag names)."""
+    ints = lambda s: tuple(int(x) for x in str(s).split(","))  # noqa: E731
+    return Config(ndepths=ints(model["ndepths"]),
+                  depth_inter_r=tuple(float(x) for x in str(model["depth_inter_r"]).split(",")),
+                  group_cor_dim=ints(model["group_cor_dim"]),
+                  fpn_base=int(model["fpn_base_channel"]), reg_base=int(model["reg_channel"]),
+                  attn_temp=float(model["attn_temp"]), mono=bool(model.get("mono")))
 
 
 def tf32(x):

@@ -2,15 +2,20 @@
 benchmark's seeded weights (the only benchmark file that imports the port
 beside the drivers)."""
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from mvsbench import traffic, weights
+from mvsbench.cells import HERE, reference_of
 from mvsbench.check import serve_inputs, train_batch
 from mvsbench.reference import losses as ref_losses
 from mvsbench.reference import model as ref_model
 
+CONFIGS = sorted(f[:-5] for f in os.listdir(os.path.join(HERE, "configs")) if f.endswith(".json"))
 SMALL = dict(height=64, width=128, views=3, batch=1, pool=2, depth_range=[425.0, 935.0],
              focal_scale=1.1, max_angle=0.05, max_shift=30.0, gt=True, mask_share=0.8)
 
@@ -24,12 +29,17 @@ def port_model(sd, train):
     return model.train(train)
 
 
-def test_state_shapes_are_the_checkpoint_grammar():
-    from mvster_tpu_torch.config import MVS4NetConfig
-    from mvster_tpu_torch.models.mvs4net import MVS4Net
+@pytest.mark.parametrize("config", CONFIGS)
+def test_state_shapes_are_the_checkpoint_grammar(config):
+    """Each configuration's reference lists the port's state dict, key for
+    key, for the model the port builds from the configuration's flags."""
+    from mvsbench.drivers import serve
 
-    want = {k: tuple(v.shape) for k, v in MVS4Net(MVS4NetConfig.dtu_default()).state_dict().items()}
-    assert {k: tuple(s) for k, s in ref_model.state_shapes(ref_model.Config()).items()} == want
+    with open(os.path.join(HERE, "configs", config + ".json")) as f:
+        spec = json.load(f)
+    ref, cfg = reference_of(spec)
+    want = {k: tuple(v.shape) for k, v in serve.port_model(spec).state_dict().items()}
+    assert {k: tuple(s) for k, s in ref.state_shapes(cfg).items()} == want
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 7])
@@ -63,7 +73,7 @@ def test_first_train_step_matches_the_port():
     loss, aux = mvs4net_loss(out, batch["depth"], batch["mask"], inverse_depth=True,
                              ot_iter=10, mono=True)
     loss.backward()
-    losses, grads, params, *_ = ref_losses.train_steps(sd, cfg, [batch])
+    losses, grads, params, *_ = ref_losses.train_steps(ref_model.forward, sd, cfg, [batch])
     want = [float(loss)] + [float(x) for x in aux["stage_ot_loss"]]
     np.testing.assert_allclose(losses[0], want, rtol=1e-5)
     got = {k: p.grad for k, p in model.named_parameters()}

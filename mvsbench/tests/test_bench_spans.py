@@ -6,7 +6,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from mvsbench.cells import load_metric
+from mvsbench.cells import Cell, load_metric
 from mvsbench.common import Readings
 from mvsbench.trace import UNIT, Trace
 
@@ -43,7 +43,7 @@ class Events:
 
     def readings(self, batch=1):
         cell = SimpleNamespace(traffic={"batch": batch})
-        return Readings(cell, Trace(self.events), flops=0.0, least={}, host={})
+        return Readings(cell, Trace(self.events), flops=0.0, host={})
 
 
 def read(name, r):
@@ -149,4 +149,32 @@ def test_a_program_without_the_spans_reads_nothing(name):
     e.launch(10, 20, 30)
     e.call("cudaStreamSynchronize", 60)
     assert read(name, e.readings()) is None
-    assert read(name, Readings(SimpleNamespace(traffic={"batch": 1}), None, 0.0, {}, {})) is None
+    assert read(name, Readings(SimpleNamespace(traffic={"batch": 1}), None, 0.0, {})) is None
+
+
+@pytest.mark.parametrize("kernel, cell, kernel_name", [
+    ("k1", "dtu-test-serve", "warp_correlate_kernel"),
+    ("k2", "dtu-mid-train", "warp_gather_kernel"),
+    ("k3", "dtu-mid-train", "warp_scatter_kernel"),
+    ("k4", "blendedmvs-train", "sinkhorn_fwd_4"),
+    ("k5", "blendedmvs-train", "sinkhorn_bwd_4"),
+])
+def test_a_roofline_is_its_least_time_over_its_kernels_time(kernel, cell, kernel_name):
+    """Two units whose kernels of that name run 300 and 100 us, beside
+    another kernel: the share is the reader's own least seconds over 200 us
+    a unit; without those kernels it reads nothing."""
+    e = Events()
+    e.span(UNIT, 0, 1000)
+    e.span(UNIT, 1000, 2000)
+    e.launch(10, 20, 300, kernel=kernel_name)
+    e.launch(1010, 1020, 100, kernel=kernel_name)
+    e.launch(1100, 1200, 50, kernel="other_kernel")
+    metric = load_metric(f"{kernel}_roofline")
+    least = metric.least_s(Cell(cell))
+    assert least > 0
+    r = Readings(Cell(cell), Trace(e.events), flops=0.0, host={})
+    assert metric.read(r) == pytest.approx(100.0 * least / 200e-6)
+    e = Events()
+    e.span(UNIT, 0, 1000)
+    e.launch(10, 20, 300, kernel="other_kernel")
+    assert metric.read(Readings(Cell(cell), Trace(e.events), flops=0.0, host={})) is None

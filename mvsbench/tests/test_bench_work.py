@@ -4,6 +4,8 @@ the port's kernel table (PERF.md) states."""
 import pytest
 
 from mvsbench import work
+from mvsbench.cells import Cell, load_metric
+from mvsbench.reference import model
 from mvsbench.reference.model import Config
 
 
@@ -33,6 +35,24 @@ def test_ot_work_counts():
 
 
 def test_reference_flops():
-    serve = work.reference_flops(Config(), 128, 192, 5, 1, train=False)
-    train = work.reference_flops(Config(), 128, 192, 5, 1, train=True)
+    serve = work.reference_flops(model, Config(), 128, 192, 5, 1, train=False)
+    train = work.reference_flops(model, Config(), 128, 192, 5, 1, train=True)
     assert serve > 0 and 2 * serve < train < 5 * serve
+
+
+@pytest.mark.parametrize("cell, kernel, seconds", [
+    ("dtu-test-serve", "k1", 0.0001208811367164179),
+    ("dtu-mid-train", "k2", 0.0003075301253731343),
+    ("dtu-mid-train", "k3", 0.0003075301253731343),
+    ("dtu-mid-train", "k4", 0.00013006939701492537),
+    ("dtu-mid-train", "k5", 0.00027093511641791045),
+    ("blendedmvs-train", "k2", 0.000622748503880597),
+    ("blendedmvs-train", "k3", 0.000622748503880597),
+    ("blendedmvs-train", "k4", 0.00017559368597014927),
+    ("blendedmvs-train", "k5", 0.0003657624071641791),
+])
+def test_least_times_of_the_cells(cell, kernel, seconds):
+    """`least_s` of mvsbench/metrics/<kernel>_roofline.py at each cell's
+    shapes: the values the drivers' own arithmetic gave before the lookup
+    by name, to the last digit."""
+    assert load_metric(f"{kernel}_roofline").least_s(Cell(cell)) == seconds

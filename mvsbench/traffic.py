@@ -19,17 +19,7 @@ focal_scale, max_angle, max_shift, gt, mask_share, and the driver's own
 
 from __future__ import annotations
 
-import json
-import os
-
 import numpy as np
-
-HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def load(name: str) -> dict:
-    with open(os.path.join(HERE, "traffic", name + ".json")) as f:
-        return json.load(f)
 
 
 def _rotation(angles):

@@ -1,7 +1,7 @@
 """Seeded weights, made on the device in two draws.
 
-Every weight and buffer that `reference.model.state_shapes` lists, from one
-normal and one uniform draw of a torch.Generator on the device, cut into
+Every weight and buffer that the cell's reference lists (its
+`state_shapes`), from one normal and one uniform draw of a torch.Generator on the device, cut into
 leaves: convolution kernels He-normal over their fan-in (a transposed
 kernel's fan-in over (in, *k)), the logit heads `reg.*.prob` ten times
 that, so the softmax over depth is decisive; BatchNorm scales and running

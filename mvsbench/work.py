@@ -108,27 +108,27 @@ def least_seconds(kernel, shapes, batch, views, iters=10):
     return total
 
 
-def reference_flops(cfg, height, width, views, batch, train):
-    """FLOPs of the plain reference's eval forward, or of its train forward,
-    loss and backward, at these shapes, counted by FlopCounterMode on the
-    meta device (convolutions and matrix products; elementwise work is not
-    counted)."""
+def reference_flops(ref, cfg, height, width, views, batch, train):
+    """FLOPs of the plain reference's (the module `ref` at its cfg) eval
+    forward, or of its train forward, loss and backward, at these shapes,
+    counted by FlopCounterMode on the meta device (convolutions and matrix
+    products; elementwise work is not counted)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from mvsbench.reference import losses, model
+    from mvsbench.reference import losses
     from mvsbench.weights import seeded_state_dict
 
     meta = torch.device("meta")
     sd = {k: v.to(meta) for k, v in seeded_state_dict(
-        model.state_shapes(cfg), 0, "cpu").items()}
+        ref.state_shapes(cfg), 0, "cpu").items()}
     params = [v.requires_grad_(train) for k, v in sd.items() if v.is_floating_point()]
     imgs = torch.empty(batch, views, height, width, 3, device=meta)
     projs = {f"stage{s}": torch.empty(batch, views, 2, 4, 4, device=meta)
              for s in range(1, 5)}
     dv = torch.empty(batch, 2, device=meta)
     with FlopCounterMode(display=False) as counter:
-        outs, mono = model.forward(sd, cfg, imgs, projs, dv, train=train)
+        outs, mono = ref.forward(sd, cfg, imgs, projs, dv, train=train)
         if train:
             gt = {k: torch.empty(batch, *o["depth"].shape[1:], device=meta)
                   for k, o in outs.items()}
