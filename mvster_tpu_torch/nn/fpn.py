@@ -5,10 +5,11 @@ bilinear top-down path.  FPN4ConvNeXt / FPN4ConvNeXt4: the same top-down
 path over two conv stems (`conv0_0`, `conv0_1`) and three ConvNeXt
 downsampling blocks.  All output channels [8b, 4b, 2b, b] at strides
 [8, 4, 2, 1], keyed stage1..stage4; with `dcn`, a DeformConvBlock
-(`dcn1..dcn4`) follows each output head.  The JAX package's eval-only
-composed tail (compose_tail) is an algebraic rewrite of the same function;
-the port runs the standard formulation that the reference checkpoint
-defines.
+(`dcn1..dcn4`) follows each output head, each call inside a `mvs.dcn`
+span (utils/profiling; four a forward, inside the model's `mvs.fpn`).
+The JAX package's eval-only composed tail (compose_tail) is an algebraic
+rewrite of the same function; the port runs the standard formulation
+that the reference checkpoint defines.
 
 Compute dtype: FPN4 casts its input to `dtype` and runs every conv in it
 (norms in float32), so its heads emit `dtype`; the ConvNeXt pyramids,
@@ -27,6 +28,7 @@ from torch import nn
 from mvster_tpu_torch.core.sampling import max_pool2d, upsample_nearest
 from mvster_tpu_torch.nn.blocks import Conv2d, ConvBlock2d
 from mvster_tpu_torch.nn.dcn import DeformConvBlock
+from mvster_tpu_torch.utils.profiling import span
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +69,9 @@ class _TopDown(nn.Module):
             intra = up2(intra) + inner(lateral)
             outs.append(out(intra))
         if self.dcn:
-            outs = [getattr(self, f"dcn{i}")(o) for i, o in enumerate(outs, 1)]
+            for i, o in enumerate(outs):
+                with span("mvs.dcn"):
+                    outs[i] = getattr(self, f"dcn{i + 1}")(o)
         return {f"stage{i}": o for i, o in enumerate(outs, 1)}
 
 

@@ -14,6 +14,7 @@ so a span costs one check of the profiler's state.
 Spans of the port, each entered once a unit of work:
   infer.h2d, infer.forward, infer.wait    tools/test.infer_views, a chunk
   mvs.fpn; mvs.cost_volume, mvs.reg       models/mvs4net, a forward; a stage
+  mvs.dcn                                 nn/fpn, a DCN head (with --dcn)
   train.batch_wait, train.h2d             train/loop, a step (h2d also in
                                           evaluate and tools/train._profile)
   train.step, train.optimizer             dist/train_step.make_train_step

@@ -3,7 +3,8 @@
 Without a profiler `span` returns one shared no-op context, and a pass
 of infer_views enters no `record_function`.  Under torch.profiler each
 served view shows infer.h2d, infer.forward and infer.wait, with one
-mvs.fpn and a mvs.cost_volume and a mvs.reg a stage inside infer.forward;
+mvs.fpn and a mvs.cost_volume and a mvs.reg a stage inside infer.forward,
+and with DCN heads a mvs.dcn a head inside mvs.fpn;
 each step of train_epoch shows train.batch_wait, train.h2d and
 train.step, with train.forward, train.loss, train.backward and
 train.optimizer inside train.step.  The tiny model of
@@ -101,6 +102,21 @@ def test_infer_views_spans_under_the_profiler():
     # the copy in comes before the forward, the wait after it
     for (h, _), (f0, f1), (w, _) in zip(got["infer.h2d"], forwards, got["infer.wait"]):
         assert h < f0 and f1 <= w
+
+
+@pytest.mark.parametrize("dcn", [True, False])
+def test_dcn_heads_each_a_span_inside_the_fpn(dcn):
+    from mvster_tpu_torch.tools.test import infer_views
+
+    model, samples = _model(dcn=dcn).eval(), _samples()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        views = list(infer_views(model, samples))
+    assert len(views) == N_VIEWS
+    got = _spans(prof)
+    assert len(got["mvs.fpn"]) == N_VIEWS
+    heads = got.get("mvs.dcn", [])
+    assert _inside(heads, got["mvs.fpn"]) == [4 if dcn else 0] * N_VIEWS
+    assert len(heads) == (4 * N_VIEWS if dcn else 0)
 
 
 class _Loader:
