@@ -126,13 +126,14 @@ Phases, one line each, any failure exits non-zero:
      dcam, pam and pdam blocks; the sine and learned depth encodings;
      asff; the convnext and convnext4 pyramids; dcn; bf16 compute) with
      seeded random weights at dtu_default's widths: (a) infer_views
-     answers 2 requests at 512x640, 5 views, 4 K1 launches each, finite
-     depth, stage 1 inside [dmin, dmax]; (b) the same model at 128x192, 3
+     answers 2 requests at 512x640, 5 views, 4 K1 launches each (and 4 K7
+     with dcn), finite depth, stage 1 inside [dmin, dmax]; (b) the same model at 128x192, 3
      views, on the card against the CPU plain path by the stage comparator
      (bf16: assert_bf16_close, the CPU tests' bf16 criteria); (c) one
      dist/train_step step at 512x640, 5 views, batch 2, --ot_backend
      pallas: finite loss, every parameter with a gradient moved, 16 K2, 16
-     K3, 4 K4 and 4 K5 launches.  Then tools.train.main --reg_mode reg3d
+     K3, 4 K4 and 4 K5 launches (and 4 K7 with dcn: K7's forward, its
+     plain version's gradients).  Then tools.train.main --reg_mode reg3d
      --pos_enc 2 --ASFF --ot_backend pallas, one epoch of phase 8's tree (16
      K2, 16 K3 and 4 K5 launches a step; its checkpoint loads strictly into
      the variant), and tools.test.main --compute_dtype bfloat16 on phase
@@ -199,20 +200,20 @@ Phases, one line each, any failure exits non-zero:
      while they run), seeded weights at dtu_default's widths, TF32 off:
      (a) serving at 512x640, 5 views, batch 1 as spatial 2, and cam, dcam,
      pdam and dcn as spatial 4 too: float32 with every count at 0 just
-     before (4 K1 launches a rank), held to one process's float32 forward
-     by F32_AGREE (windows and decisive depths), and float64 (K1's plain
-     version) held to one process's float64 forward by the stage
+     before (4 K1 launches a rank, and 4 K7 with dcn), held to one process's float32 forward
+     by F32_AGREE (windows and decisive depths), and float64 (K1's and
+     K7's plain versions) held to one process's float64 forward by the stage
      comparator and every stage's attention within F64_ATTN_ATOL; each
      rank's peak memory against one process's; (b) the DTU-mid train cell
      (phase 8's tree, batch 2, mono on) as spatial 2, one SGD step:
-     float64 (plain warp, xla) within relative L2 1e-7 of one process's
+     float64 (plain warp and K7's plain version, xla) within relative L2 1e-7 of one process's
      float64 step, float32 --ot_backend pallas against one process's
      float32 step with the ranks' BatchNorm arithmetic (scalars at rtol
      1e-5, VARIANT_WINDOW_RTOL downstream of a window; every gradient
      finite, their median distance from float64 within F32_NOISE_RATIO
      times one process's; the pixels whose hypothesis
      window moved from the float64 step, counted), 16 K2, 16 K3, 4 K4 and
-     4 K5 launches a rank, ranks bitwise equal; (c) K1 on the last of 2
+     4 K5 launches a rank (and 4 K7 with dcn in float32), ranks bitwise equal; (c) K1 on the last of 2
      and of 4 bands, and K2-K5 on the last of 2, of the DTU-mid stages
      against plain
  25. K6 (the planar convs' weight gradient) at each of Reg2d's 7 planar
@@ -228,6 +229,16 @@ Phases, one line each, any failure exits non-zero:
      (a line a conv).  Phase 8 counts 28
      K6 launches a step.  `python3 chip_smoke.py k6` runs phases 1, 2 and
      25 alone.
+ 26. K7 (the DCN heads' sampling and contraction) at the four heads of a
+     served --dcn view (832x1152, 5 images; C = 64, 32, 16, 8 at strides
+     8 to 1) with offsets of three reaches (N(0, 1) px, uniform +-4 px,
+     uniform +-64 px): the same bits from two launches, against its plain
+     version (atol = rtol = K7_TOL); K7 timed queued (the kernel alone
+     and the wrapper's call with its channels-last copy), the plain
+     version back to back, beside the bound (the map, offsets, mask and
+     output bytes at 3.35 TB/s or the contraction's and sampling's FLOPs
+     at 67 TFLOP/s; a line a head), and ptxas's report of its instances.
+     `python3 chip_smoke.py k7` runs phases 1, 2 and 26 alone.
 
 The last three lines are the card's name and power limit, a JSON line with
 the kernels' launches, errors and times (summed over the four stages; K2
@@ -244,7 +255,9 @@ spatial_train (K2-K5 over the ranks of its runs; their band errors under
 max_abs_err_by_path) and spatial_train_serve (K1, (c)), and phase 24's:
 spatial_variants_serve (K1) and spatial_variants_train (K2-K5), over the
 ranks, their band errors under max_abs_err_by_path; K6's times are the
-DTU-mid step's 28 convs, its launches phase 8's), and
+DTU-mid step's 28 convs, its launches phase 8's; K7's times are a served
+--dcn view's four heads, its launches phase 21 (a)'s, and its launches on
+phase 21 (c)'s and phase 24's paths under launches_by_path), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -296,6 +309,7 @@ from mvster_tpu_torch.infer.ply import read_ply  # noqa: E402
 from mvster_tpu_torch.kernels import (  # noqa: E402
     _build,
     conv_wgrad,
+    deform_conv,
     sinkhorn_ot,
     warp_correlate,
     warp_vjp,
@@ -358,6 +372,13 @@ K6 = dict(name="conv_wgrad", route="cuda", source="mvster_tpu_torch/csrc/conv_wg
           replaces=None)
 K6_PER_STEP = 28  # Reg2d's 7 planar convs x 4 stages
 K6_ENTRY = "k6"  # `python3 chip_smoke.py k6`: phases 1, 2 and 25 alone
+K7 = dict(name="deform_conv", route="cuda", source="mvster_tpu_torch/csrc/deform_conv.cu",
+          replaces=None)
+K7_ENTRY = "k7"  # `python3 chip_smoke.py k7`: phases 1, 2 and 26 alone
+K7_VIEWS = 5  # a served view's images (dtu-test-serve-dcn)
+K7_TOL = 1e-5  # atol = rtol: float32 sums of 9C products in another order
+# offsets: N(0, 1) px, uniform +-4 px, uniform +-64 px (most taps clamped)
+K7_REACHES = [("normal1", None), ("uniform4", 4.0), ("uniform64", 64.0)]
 # phases 17-19: the serving path through tools.test.main.  DTU's published
 # 1200x1600 images at the CLI's default --max_h 864 --max_w 1152, which the
 # loader snaps down to multiples of 64: 832x1152; 7 views of a scan's 49; a
@@ -1000,7 +1021,7 @@ def phase12_sinkhorn(dev):
 
 def _reset_counts():
     for fn in (sinkhorn_ot.sinkhorn_fwd, sinkhorn_ot.sinkhorn_bwd, warp_vjp.warp_gather,
-               warp_vjp.scatter_grad, warp_correlate.fused_cost_volume):
+               warp_vjp.scatter_grad, warp_correlate.fused_cost_volume, deform_conv.deform_conv):
         fn.launches = 0
 
 
@@ -1064,25 +1085,28 @@ def phase13_finetune(dev, tmp, ckpt, card):
 @contextlib.contextmanager
 def plain_warp():
     """Within: the training cost volume gathers with the plain warp (autograd
-    through warp_plain), which takes any dtype: the float64 reference step."""
-    kernel = warp_vjp.grid_sample_zeros_vjp
+    through warp_plain) and the DCN heads take K7's plain version, which
+    take any dtype: the float64 reference step."""
+    kernel, k7 = warp_vjp.grid_sample_zeros_vjp, deform_conv.deform_conv
     warp_vjp.grid_sample_zeros_vjp = warp_vjp.warp_plain
+    deform_conv.deform_conv = deform_conv.deform_conv_plain
     try:
         yield
     finally:
-        warp_vjp.grid_sample_zeros_vjp = kernel
+        warp_vjp.grid_sample_zeros_vjp, deform_conv.deform_conv = kernel, k7
 
 
 @contextlib.contextmanager
-def plain_k1():
-    """Within: the eval cost volume takes K1's plain version, which takes any
-    dtype: the float64 reference forward."""
-    kernel = warp_correlate.fused_cost_volume
+def plain_eval():
+    """Within: the eval cost volume takes K1's plain version and the DCN
+    heads K7's, which take any dtype: the float64 reference forward."""
+    k1, k7 = warp_correlate.fused_cost_volume, deform_conv.deform_conv
     warp_correlate.fused_cost_volume = warp_correlate.fused_cost_volume_plain
+    deform_conv.deform_conv = deform_conv.deform_conv_plain
     try:
         yield
     finally:
-        warp_correlate.fused_cost_volume = kernel
+        warp_correlate.fused_cost_volume, deform_conv.deform_conv = k1, k7
 
 
 def dtu_batch(root, dev):
@@ -2059,7 +2083,8 @@ VARIANT_TRAIN_FLAGS = ["--reg_mode", "reg3d", "--pos_enc", "2", "--ASFF"]
 
 def _variant_serve(name, model, dev):
     """(a) infer_views answers VARIANT_REQUESTS requests at DTU-mid with
-    every count at 0 just before; returns the counts."""
+    every count at 0 just before (K7 4 a forward with --dcn); returns the
+    counts."""
     requests = []
     for seed in range(VARIANT_REQUESTS):
         s = synthetic_sample(210 + seed, nviews=NVIEWS, h=H, w=W)
@@ -2068,9 +2093,10 @@ def _variant_serve(name, model, dev):
     _reset_counts()
     served = list(infer_views(model, requests, eval_batch=1))
     torch.cuda.synchronize()
-    counts = _launch_counts()
+    counts = dict(_launch_counts(), K7=deform_conv.deform_conv.launches)
+    k7 = 4 * VARIANT_REQUESTS if VARIANTS[name].get("dcn") else 0  # a head each of 4
     if len(served) != VARIANT_REQUESTS or counts != dict(
-            K1=4 * VARIANT_REQUESTS, K2=0, K3=0, K4=0, K5=0):
+            K1=4 * VARIANT_REQUESTS, K2=0, K3=0, K4=0, K5=0, K7=k7):
         raise AssertionError(f"{name}: {len(served)} requests served, launches {counts}")
     for req, (_, res) in zip(requests, served):
         dmin, dmax = req["depth_values"][0], req["depth_values"][-1]
@@ -2100,7 +2126,7 @@ def _variant_card_vs_cpu(name, model_cpu, dev):
 def _variant_step(name, overrides, batch, dev):
     """(c) one train step of dtu_default(**overrides) (mono on) at DTU-mid,
     batch 2, --ot_backend pallas, through dist/train_step, with every count
-    at 0 just before; returns (loss, counts)."""
+    at 0 just before (K7 4 with --dcn); returns (loss, counts)."""
     from mvster_tpu_torch.models.losses import mvs4net_loss
 
     model = MVS4Net(MVS4NetConfig.dtu_default(**overrides))
@@ -2112,12 +2138,13 @@ def _variant_step(name, overrides, batch, dev):
     _reset_counts()
     scalars, _ = step(batch)
     torch.cuda.synchronize()
-    counts = _launch_counts()
+    counts = dict(_launch_counts(), K7=deform_conv.deform_conv.launches)
     loss = float(scalars["loss"])
     graded = {k for k, p in model.named_parameters() if p.grad is not None and p.grad.any()}
     moved = {k for k, p in model.named_parameters() if not torch.equal(p.detach(), before[k])}
     per_step = 4 * (NVIEWS - 1)
-    if counts != dict(K1=0, K2=per_step, K3=per_step, K4=4, K5=4):
+    k7 = 4 if overrides.get("dcn") else 0  # the forward's; its backward is plain
+    if counts != dict(K1=0, K2=per_step, K3=per_step, K4=4, K5=4, K7=k7):
         raise AssertionError(f"{name}: train-step launches {counts}")
     if not np.isfinite(loss) or not graded or moved != graded:
         raise AssertionError(f"{name}: loss {loss}, {len(graded)} tensors with a gradient, "
@@ -2169,12 +2196,14 @@ def phase21_variants(dev, tmp, root, ckpt, serve, card):
     """Every variant through (a) serving, (b) the card against the CPU and
     (c) one train step; then tools.train.main and tools.test.main by their
     flags, and the bf16 times.  Returns the kernels' launches over (a) and
-    (c) of every variant and the two entry points."""
+    (c) of every variant and the two entry points, and K7's over (a) and
+    over (c)."""
     from mvster_tpu_torch.tools import train
 
     t0 = time.perf_counter()
     batch = dtu_batch(root, dev)
-    total = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    total = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K7=0)
+    k7_paths = dict(serve=0, train=0)
     for name, overrides in VARIANTS.items():
         tv = time.perf_counter()
         model_cpu = build_model(seed=21, **overrides)
@@ -2184,10 +2213,12 @@ def phase21_variants(dev, tmp, root, ckpt, serve, card):
         loss, step_counts, moved = _variant_step(name, overrides, batch, dev)
         for k in total:
             total[k] += counts[k] + step_counts[k]
+        k7_paths["serve"] += counts["K7"]
+        k7_paths["train"] += step_counts["K7"]
         del model, model_cpu
         torch.cuda.empty_cache()
         log(f"[21 variant {name}] {overrides}: served {VARIANT_REQUESTS} requests at {H}x{W}, "
-            f"{NVIEWS} views, {counts['K1']} K1 launches, latency ms "
+            f"{NVIEWS} views, {counts['K1']} K1 and {counts['K7']} K7 launches, latency ms "
             + ", ".join(f"{1e3 * x:.2f}" for x in seconds)
             + f"; card vs CPU at {VARIANT_H}x{VARIANT_W}, {VARIANT_VIEWS} views: "
             f"{'assert_bf16_close' if name == 'bf16' else 'stage comparator'} holds, stage-1 "
@@ -2211,7 +2242,7 @@ def phase21_variants(dev, tmp, root, ckpt, serve, card):
               if r["mode"] == "train"]
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"tools.train.main {VARIANT_TRAIN_FLAGS}: losses {losses}")
-    for k in total:
+    for k in counts:
         total[k] += counts[k]
     config = MVS4NetConfig.dtu_default(reg_net="reg3d", pos_enc=2, asff=True)
     trained = MVS4Net(config)
@@ -2242,8 +2273,9 @@ def phase21_variants(dev, tmp, root, ckpt, serve, card):
         f"fusion {times['fusion'][serve['scan']]:.3f} s | {card}")
     _bf16_times(dev, batch, card)
     log(f"[21 variants] {len(VARIANTS)} variants, both entry points and the bf16 times in "
-        f"{time.perf_counter() - t0:.1f} s; launches over the phase's paths {total}")
-    return total
+        f"{time.perf_counter() - t0:.1f} s; launches over the phase's paths {total}, K7's by "
+        f"path {k7_paths}")
+    return total, k7_paths
 
 
 # phase 22: the last modules of the JAX package.  (a) image-row sharded
@@ -3284,7 +3316,7 @@ SPATIAL_VARIANT_RANK = "--spatial-variant-rank"
 # tap (DCN) reaches past the neighbouring band
 VARIANT_SPAN4 = ("cam", "dcam", "pdam", "dcn")
 VARIANT_SEED = 240
-# (a) float64 (K1's plain version) on the bands against one process's:
+# (a) float64 (K1's and K7's plain versions) on the bands against one process's:
 # every stage's attention within this (measured on an H100 at DTU-mid:
 # 3.3e-12), besides the stage comparator
 F64_ATTN_ATOL = 1e-9
@@ -3352,13 +3384,13 @@ def _band_serve(name, n, sample, dev, rank):
         torch.cuda.reset_peak_memory_stats(dev)
         _reset_counts()
         try:
-            with plain_k1() if dtype == F64 else contextlib.nullcontext():
+            with plain_eval() if dtype == F64 else contextlib.nullcontext():
                 step(*_serve_inputs(sample, dtype))
             torch.cuda.synchronize()
         finally:
             hook.remove()
         if dtype == torch.float32:
-            res.update(launches=_launch_counts(),
+            res.update(launches=dict(_launch_counts(), K7=deform_conv.deform_conv.launches),
                        peak=torch.cuda.max_memory_allocated(dev) - base)
         (out,) = outs
         gathered = {f"stage{s}": {k: spatial.gather_rows(out[f"stage{s}"][k], groups).cpu()
@@ -3425,8 +3457,8 @@ def _band_train(name, dtype, batch, dev, rank):
     digest = hashlib.sha256()
     for v in model.state_dict().values():
         digest.update(v.cpu().numpy().tobytes())
-    res = dict(launches=_launch_counts(), scalars={k: float(v) for k, v in scalars.items()},
-               after=digest.hexdigest(),
+    res = dict(launches=dict(_launch_counts(), K7=deform_conv.deform_conv.launches),
+               scalars={k: float(v) for k, v in scalars.items()}, after=digest.hexdigest(),
                finite=bool(all(torch.isfinite(v).all() for v in images.values())))
     if rank == 0:
         res["grads"] = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()}
@@ -3518,7 +3550,7 @@ def phase24_spatial_variants(dev, tmp, root, card):
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
                 with torch.inference_mode(), (
-                        plain_k1() if dtype == F64 else contextlib.nullcontext()):
+                        plain_eval() if dtype == F64 else contextlib.nullcontext()):
                     out = to_numpy_tree(model(imgs.to(dev), {k: v.to(dev) for k, v in
                                                              projs.items()}, dv.to(dev)))
                 if dtype == torch.float32:
@@ -3549,18 +3581,20 @@ def phase24_spatial_variants(dev, tmp, root, card):
             ranks.append(pickle.load(f))
     ranks_s = time.perf_counter() - t0
 
-    serve_totals = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    serve_totals = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K7=0)
     train_totals = dict(serve_totals)
     for name in BAND_VARIANTS:
         ref = single[name]
         parts = []
+        k7 = 4 if BAND_VARIANTS[name].get("dcn") else 0  # a head each of 4, a rank
         first = 2 * _variant_pair(name)
         for key, members in (("serve2", range(first, first + 2)), ("serve4", range(4))):
             if name not in ranks[members[0]][key]:
                 continue
             runs, n = [ranks[r][key][name] for r in members], len(members)
             for r, run in enumerate(runs):
-                if run["band"] != r or run["launches"] != dict(K1=4, K2=0, K3=0, K4=0, K5=0):
+                if run["band"] != r or run["launches"] != dict(K1=4, K2=0, K3=0, K4=0, K5=0,
+                                                                K7=k7):
                     raise AssertionError(f"{name} spatial {n} rank {r}: band {run['band']}, "
                                          f"launches {run['launches']}")
                 for k in serve_totals:
@@ -3580,8 +3614,8 @@ def phase24_spatial_variants(dev, tmp, root, card):
                 f"{min(d for _, d in agree):.4%}; peak a rank "
                 + " / ".join(f"{run['peak'] / 2**20:.1f}" for run in runs) + " MiB")
         log(f"[24a spatial serve] {name}: dtu_default(mono=False, {BAND_VARIANTS[name]}) at "
-            f"{H}x{W}, {NVIEWS} views, batch 1, 4 K1 launches a rank; float64 (K1's plain "
-            f"version) matches one process's float64 card forward by the stage comparator and "
+            f"{H}x{W}, {NVIEWS} views, batch 1, 4 K1 and {k7} K7 launches a rank; float64 (K1's and K7's "
+            f"plain versions) matches one process's float64 card forward by the stage comparator and "
             f"within {F64_ATTN_ATOL}; " + " | ".join(parts)
             + f"; one process {ref['peak'] / 2**20:.1f} MiB | {card}")
 
@@ -3590,9 +3624,9 @@ def phase24_spatial_variants(dev, tmp, root, card):
         pair = (2 * _variant_pair(name), 2 * _variant_pair(name) + 1)
         f64 = [ranks[r]["f64"][name] for r in pair]
         f32 = [ranks[r]["pallas"][name] for r in pair]
-        k23 = 4 * (NVIEWS - 1)
-        for kind, runs, want in (("f64", f64, dict(K1=0, K2=0, K3=0, K4=0, K5=0)),
-                                 ("pallas", f32, dict(K1=0, K2=k23, K3=k23, K4=4, K5=4))):
+        k23, k7 = 4 * (NVIEWS - 1), 4 if BAND_VARIANTS[name].get("dcn") else 0
+        for kind, runs, want in (("f64", f64, dict(K1=0, K2=0, K3=0, K4=0, K5=0, K7=0)),
+                                 ("pallas", f32, dict(K1=0, K2=k23, K3=k23, K4=4, K5=4, K7=k7))):
             for r, run in enumerate(runs):
                 if run["launches"] != want or not run["finite"]:
                     raise AssertionError(f"{name} {kind} rank {r}: launches "
@@ -3756,6 +3790,113 @@ def k6_entry():
     return 0
 
 
+def k7_heads(h=None, w=None):
+    """(C, h, w) of FPN4's four heads at base 8 for an h x w view."""
+    h, w = h or SERVE_H, w or SERVE_W
+    return [(64, h // 8, w // 8), (32, h // 4, w // 4), (16, h // 2, w // 2), (8, h, w)]
+
+
+def k7_work(n, c, h, w):
+    """K7's bytes (the map, 27 offset and mask floats a pixel and the
+    output, each once) and FLOPs (2 x 9C x C of contraction and 72 C of
+    sampling a pixel) over n images of h x w."""
+    pixels = n * h * w
+    return pixels * (8 * c + 4 * 27), pixels * (18 * c * c + 72 * c)
+
+
+def _k7_ptxas():
+    """ptxas's registers and spills of each K7 instance, from nvcc.log."""
+    log = (_build.library_path().parent / "nvcc.log").read_text()
+    i = log.index("== deform_conv.cu")
+    j = log.find("\n==", i + 5)
+    out = []
+    for line in log[i:j if j > 0 else None].splitlines():
+        if "Compiling entry" in line and "deform_conv_kernelILi" in line:
+            out.append("C=" + line.split("deform_conv_kernelILi")[1].split("E")[0] + ":")
+        elif out and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.replace("ptxas info    : ", "").strip()
+    return out
+
+
+def phase26_k7(dev, card):
+    """K7 at the four heads of a served view, three reaches of offsets:
+    against its plain version, the same bits twice, timed beside its bound
+    and the plain version.  Returns (per-reach sums, max |K7 - plain|)."""
+    for line in _k7_ptxas():
+        log("  ptxas " + line)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sums, max_abs = {}, 0.0
+    for reach, scale in K7_REACHES:
+        tot = dict(k7=0.0, call=0.0, copy=0.0, bound=0.0, plain=0.0)
+        for c, h, w in k7_heads():
+            n = K7_VIEWS
+            x = torch.randn(n, c, h, w, generator=gen, device=dev).relu()
+            if scale is None:
+                off = torch.randn(n, 18, h, w, generator=gen, device=dev)
+            else:
+                off = (torch.rand(n, 18, h, w, generator=gen, device=dev) * 2 - 1) * scale
+            mask = torch.randn(n, 9, h, w, generator=gen, device=dev) * 2
+            wt = torch.randn(c, c, 3, 3, generator=gen, device=dev) / (9 * c) ** 0.5
+            with torch.inference_mode():
+                got = deform_conv.deform_conv(x, off, mask, wt)
+                again = deform_conv.deform_conv(x, off, mask, wt)
+                plain = deform_conv.deform_conv_plain(x, off, mask, wt)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K7 C={c} {reach}: two launches differ")
+                err = (got - plain).abs().max().item()
+                limit = K7_TOL * (1 + plain.abs().max().item())
+                if err > limit:
+                    raise AssertionError(f"K7 C={c} {reach}: max|K7 - plain| {err:.3e} > {limit:.3e}")
+                max_abs = max(max_abs, err)
+                x_last = x.permute(0, 2, 3, 1).contiguous()
+                out = torch.empty_like(got)
+
+                def k7_alone():
+                    rc = lib.mvster_deform_conv(x_last.data_ptr(), off.data_ptr(),
+                                                mask.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                                                n, c, h, w, h, 0, stream)
+                    if rc:
+                        raise AssertionError(f"mvster_deform_conv returned {rc}")
+
+                k7_ms = queued_ms(k7_alone, 20)
+                call_ms = queued_ms(lambda: deform_conv.deform_conv(x, off, mask, wt), 20)
+                copy_ms = queued_ms(lambda: x.permute(0, 2, 3, 1).contiguous(), 20)
+                plain_ms = cuda_ms(lambda: deform_conv.deform_conv_plain(x, off, mask, wt), 3, warmup=1)
+            b_ms, b_by = bound(*k7_work(n, c, h, w))
+            for key, v in (("k7", k7_ms), ("call", call_ms), ("copy", copy_ms),
+                           ("bound", b_ms), ("plain", plain_ms)):
+                tot[key] += v
+            log(f"  [26 K7] {reach} C={c} {n}x{h}x{w}: K7 {k7_ms:.4f} ms, with its copy "
+                f"{call_ms:.4f} (copy {copy_ms:.4f}), bound {b_ms:.4f} ({b_by}), plain "
+                f"{plain_ms:.3f}; max|K7 - plain| {err:.2e}")
+            del x, off, mask, wt, got, again, plain, x_last, out
+            torch.cuda.empty_cache()
+        sums[reach] = tot
+        log(f"[26 K7] {reach}: a view's four heads K7 {tot['k7']:.4f} ms, with copies "
+            f"{tot['call']:.4f}, bound {tot['bound']:.4f} ({100 * tot['bound'] / tot['k7']:.1f}% "
+            f"of K7), plain {tot['plain']:.2f} | {card}")
+    return sums, max_abs
+
+
+def k7_entry():
+    """Phases 1, 2 and 26 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__}")
+    _build.build()
+    _build.load_library()
+    log(f"[2 build] nvcc {_build.build_seconds} s")
+    phase26_k7(torch.device("cuda"), card)
+    return 0
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3887,7 +4028,7 @@ def main():
         ddp_launches = phase20_ddp_entry(dev, tmp, root, card)
         phase20_gloo_pair(dev, tmp, root, card)
         # 21: the model variants, from phase 8's tree and phase 17's scan
-        variant_launches = phase21_variants(dev, tmp, root, ckpt, serve, card)
+        variant_launches, k7_paths = phase21_variants(dev, tmp, root, ckpt, serve, card)
         # 22: image-row sharding, the vis dumps and the sg_cuts hook
         spatial_launches, spatial_err, vis_launches, vis_err, cut_launches = phase22(
             dev, tmp, root, ckpt, serve, model, mid_out, card)
@@ -3899,6 +4040,8 @@ def main():
             phase24_spatial_variants(dev, tmp, root, card))
     # 25: K6 at the train cells' planar convs
     k6_sums, k6_err = phase25_k6(dev, card)
+    # 26: K7 at a served --dcn view's heads
+    k7_sums, k7_err = phase26_k7(dev, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -3959,6 +4102,12 @@ def main():
              plain_ms=k6_sums["dtu-mid"]["plain"], bound_ms=k6_sums["dtu-mid"]["bound"],
              library_ms=k6_sums["dtu-mid"]["library"],
              launches_by_path={"train": k6_launches}),
+        dict(K7, launches=k7_paths["serve"], max_abs_err=k7_err, ms=k7_sums["normal1"]["k7"],
+             plain_ms=k7_sums["normal1"]["plain"], bound_ms=k7_sums["normal1"]["bound"],
+             library_ms=None, with_copy_ms=k7_sums["normal1"]["call"],
+             launches_by_path={"serve": k7_paths["serve"], "train": k7_paths["train"],
+                               "spatial_variants_serve": sv_serve["K7"],
+                               "spatial_variants_train": sv_train["K7"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3968,6 +4117,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == [K6_ENTRY]:
         sys.exit(k6_entry())
+    if sys.argv[1:2] == [K7_ENTRY]:
+        sys.exit(k7_entry())
     if sys.argv[1:2] == [DDP_ENTRY]:
         sys.exit(ddp_entry(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [GLOO_RANK]:

@@ -199,6 +199,14 @@ def load_library() -> ctypes.CDLL:
             p,                          # cudaStream_t
         ]
         lib.mvster_conv_wgrad.restype = i
+        lib.mvster_deform_conv.argtypes = [
+            p, p, p, p, p,              # x (channels last), offsets, mask, weight, out
+            i, i, i, i, i, i,           # B, C, h, W, Hw, row0
+            p,                          # cudaStream_t
+        ]
+        lib.mvster_deform_conv.restype = i
+        lib.mvster_deform_conv_prepare.argtypes = []
+        lib.mvster_deform_conv_prepare.restype = i
         lib.mvster_cuda_error_string.argtypes = [i]
         lib.mvster_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
