@@ -3,7 +3,7 @@
 Same fields, defaults and `dtu_default` as the JAX dataclass, so one
 configuration names the same model in both packages
 (tests/test_torch_model.py asserts the equality).  The port runs every
-configuration the JAX package runs: `unsupported()` lists none.
+configuration the JAX package runs.
 """
 
 from __future__ import annotations
@@ -60,9 +60,4 @@ class MVS4NetConfig:
         )
         base.update(overrides)
         return cls(**base)
-
-    def unsupported(self) -> list[str]:
-        """The settings of this config that the port cannot run: none
-        since the sg_cuts hook was ported."""
-        return []
 

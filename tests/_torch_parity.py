@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,14 +30,128 @@ if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
                               // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
-@pytest.fixture
+@pytest.fixture(scope="session")
 def cuda_device():
-    """The CUDA device, with TF32 off; skips the test where there is no card."""
+    """The CUDA device, with TF32 off; skips the test where there is no card.
+    Session-wide, so that a module's fixtures can build on it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA); the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _kernel_wrappers():
+    from mvster_tpu_torch.kernels import (conv_wgrad, deform_conv, sinkhorn_ot, warp_correlate,
+                                          warp_vjp)
+
+    return {"K1": warp_correlate.fused_cost_volume, "K2": warp_vjp.warp_gather,
+            "K3": warp_vjp.scatter_grad, "K4": sinkhorn_ot.sinkhorn_fwd,
+            "K5": sinkhorn_ot.sinkhorn_bwd, "K6": conv_wgrad.conv_wgrad,
+            "K7": deform_conv.deform_conv}
+
+
+def reset_launches():
+    """Sets the launch count that each kernel wrapper keeps to 0."""
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launches():
+    """{"K1": .., "K7": ..}: each kernel wrapper's launches since
+    reset_launches."""
+    return {k: fn.launches for k, fn in _kernel_wrappers().items()}
+
+
+@contextlib.contextmanager
+def plain_warp():
+    """Within: the training cost volume gathers with the plain warp (autograd
+    through warp_plain) and the DCN heads take K7's plain version, which
+    take any dtype: a float64 reference step on the card."""
+    from mvster_tpu_torch.kernels import deform_conv, warp_vjp
+
+    kernel, k7 = warp_vjp.grid_sample_zeros_vjp, deform_conv.deform_conv
+    warp_vjp.grid_sample_zeros_vjp = warp_vjp.warp_plain
+    deform_conv.deform_conv = deform_conv.deform_conv_plain
+    try:
+        yield
+    finally:
+        warp_vjp.grid_sample_zeros_vjp, deform_conv.deform_conv = kernel, k7
+
+
+@contextlib.contextmanager
+def plain_eval():
+    """Within: the eval cost volume takes K1's plain version and the DCN
+    heads K7's, which take any dtype: a float64 reference forward on the
+    card."""
+    from mvster_tpu_torch.kernels import deform_conv, warp_correlate
+
+    k1, k7 = warp_correlate.fused_cost_volume, deform_conv.deform_conv
+    warp_correlate.fused_cost_volume = warp_correlate.fused_cost_volume_plain
+    deform_conv.deform_conv = deform_conv.deform_conv_plain
+    try:
+        yield
+    finally:
+        warp_correlate.fused_cost_volume, deform_conv.deform_conv = k1, k7
+
+
+@contextlib.contextmanager
+def flax_moments():
+    """Within: one process's train-mode BatchNorm takes its moments as a step
+    under a group of more than one rank does (nn/blocks._FlaxStats.
+    _moments_forward: flax's variance E[x^2] - E[x]^2 from each channel's
+    float32 sums) instead of through cuDNN, so one process rounds its
+    statistics as the spatial ranks do."""
+    from mvster_tpu_torch.nn import blocks
+
+    forward = blocks._FlaxStats.forward
+
+    def moments(self, x):
+        if not self.training:
+            return forward(self, x)
+        x = x.to(self.weight.dtype)
+        self._check_input_dim(x)
+        return self._moments_forward(x)
+
+    blocks._FlaxStats.forward = moments
+    try:
+        yield
+    finally:
+        blocks._FlaxStats.forward = forward
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(file, args, n, **env):
+    """n processes of the test file `file` run as a script with `args`, each
+    with torchrun's environment (RANK, WORLD_SIZE, a free MASTER_PORT) and
+    `env`; the repository and tests/ on their path."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    base = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()),
+                PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]), **env)
+    base.pop("LOCAL_RANK", None)
+    return [subprocess.Popen([sys.executable, file, *args], env=dict(base, RANK=str(r)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+
+
+def wait_ranks(procs, timeout=600):
+    """Waits for spawn_ranks' processes and returns their logs; raises with
+    the end of its log where one failed."""
+    logs = []
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+    return logs
 
 
 def t(x, device="cpu"):
@@ -69,7 +186,8 @@ def stage_inputs(seed, h, w, c, d, nsrc, batch=1):
 
 
 # the model variants of the JAX package beyond dtu_default's, by name: the
-# MVS4NetConfig fields each sets (tests/test_torch_variants*.py, chip_smoke.py)
+# MVS4NetConfig fields each sets (tests/test_torch_variants*.py,
+# tests/test_torch_card_paths.py)
 VARIANTS = {
     "reg3d": dict(reg_net="reg3d"),
     "cam": dict(agg_type="ConvBnReLU3D_CAM"),

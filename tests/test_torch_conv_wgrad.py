@@ -8,10 +8,12 @@ its partial sums grouped into one block and into several as the kernel
 groups them (atol 1e-5 in float32, 1e-12 in float64); PlanarConv on CPU
 tensors against the modules without it; the rule (blocks.planar_f32,
 blocks.takes_k6) against Reg2d, Reg3d, bf16 and FPN4.
-CUDA (marked `cuda`, skipped without a card; `chip_smoke.py k6` repeats
-them at the train cells' shapes): K6 against the plain version, the same
-bits twice, and PlanarConv's output and gradients against autograd's on
-the card.
+CUDA (marked `cuda`, skipped without a card): K6 against the plain
+version, the same bits twice, and PlanarConv's output and gradients
+against autograd's on the card; and at every planar conv of the two train
+cells' steps and two band shapes, the same bits twice and K6's relative
+L2 distance from the float64 plain version within twice cuDNN's (autograd's
+weight gradient, which the port no longer calls for these convs).
 The file imports no JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_conv_wgrad.py`.
 """
@@ -163,3 +165,63 @@ def test_planar_conv_on_the_card_matches_autograd(cuda_device, case):
     torch.testing.assert_close(got_y, want_y, atol=1e-5, rtol=1e-6)
     torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-6)
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
+
+
+def _train_cell_convs(cell, h, w, b=2, stages=((8, 8), (8, 8), (4, 4), (4, 4))):
+    """Reg2d's seven planar convs at each stage (D, G) of an h x w train
+    step: (id, transposed, M, C, stride, padding, g's shape, x's shape) as
+    K6 takes them (a transposed conv's input is g, its output gradient x)."""
+    out = []
+    for s, (d, g) in enumerate(stages):
+        hs, ws = h >> (3 - s), w >> (3 - s)
+        lv = [(hs >> k, ws >> k) for k in range(4)]
+        out.append((f"{cell}.s{s + 1}.conv0", False, 8, g, 1, (1, 1), (b, 8, d, *lv[0]),
+                    (b, g, d, *lv[0])))
+        for k, (name, tname) in enumerate((("conv1", "conv11"), ("conv3", "conv9"),
+                                           ("conv5", "conv7"))):
+            m, c = 16 << k, 8 << k
+            gs, xs = (b, m, d, *lv[k + 1]), (b, c, d, *lv[k])
+            out.append((f"{cell}.s{s + 1}.{name}", False, m, c, 2, (1, 1), gs, xs))
+            out.append((f"{cell}.s{s + 1}.{tname}", True, m, c, 2, (1, 1), gs, xs))
+    return out
+
+
+# the DTU-mid and BlendedMVS train cells' steps, and make_spatial_train_step's
+# stage 4 at 512x640 in 2 bands: conv0 on a band of 256 rows with its two
+# halo rows (no row padding), and the transposed conv11 on 128 rows and its
+# halo row, before the crop
+TRAIN_CONVS = (_train_cell_convs("dtu-mid", 512, 640) + _train_cell_convs("blendedmvs", 576, 768)
+               + [("band.conv0", False, 8, 4, 1, (0, 1), (2, 8, 4, 256, 640), (2, 4, 4, 258, 640)),
+                  ("band.conv11", True, 16, 8, 2, (1, 1), (2, 16, 4, 129, 320),
+                   (2, 8, 4, 257, 640))])
+
+
+def _cudnn_wgrad(transposed, g, x, stride, padding, m, c):
+    """cuDNN's weight gradient of the same conv (autograd's call)."""
+    w = torch.empty(m, c, 1, 3, 3, device=g.device)
+    s, p = (1, stride, stride), (0, *padding)
+    if transposed:  # the conv's input g, its output gradient x
+        op = tuple(x.shape[i] - ((g.shape[i] - 1) * stride - 2 * padding[i - 3] + 3)
+                   for i in (3, 4))
+        return torch.ops.aten.convolution_backward(
+            x, g, w, None, s, p, (1, 1, 1), True, (0, *op), 1, [False, True, False])[1]
+    return torch.ops.aten.convolution_backward(
+        g, x, w, None, s, p, (1, 1, 1), False, (0, 0, 0), 1, [False, True, False])[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", TRAIN_CONVS, ids=[c[0] for c in TRAIN_CONVS])
+def test_k6_at_the_train_cells_convs_is_as_close_to_float64_as_cudnn(cuda_device, conv):
+    _, transposed, m, c, stride, padding, gs, xs = conv
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    g = torch.randn(gs, generator=gen, device=cuda_device)
+    x = torch.randn(xs, generator=gen, device=cuda_device)
+    got = conv_wgrad.conv_wgrad(g, x, stride, padding)
+    again = conv_wgrad.conv_wgrad(g, x, stride, padding)
+    library = _cudnn_wgrad(transposed, g, x, stride, padding, m, c)
+    exact = conv_wgrad.conv_wgrad_plain(g.double(), x.double(), stride, padding)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = exact.norm().item()
+    assert (got.double() - exact).norm().item() / scale <= (
+        2 * (library.double() - exact).norm().item() / scale)

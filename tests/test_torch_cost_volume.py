@@ -169,15 +169,25 @@ DTU_MID_STAGES = [(64, 80, 64, 8, 8), (128, 160, 32, 8, 8),
                   (256, 320, 16, 4, 4), (512, 640, 8, 4, 4)]
 
 
+# (H, W, C, D, G) of each stage of the served cascades, with their sources:
+# DTU's 1200x1600 read at 832x1152 (the CLI's default --max_h 864
+# --max_w 1152, snapped to multiples of 64), 4 sources; Tanks and Temples'
+# 1080x1920 cut to 1024x1920, 2 sources
+SERVED_CASCADES = [((h >> (3 - s), w >> (3 - s), c, d, g), nsrc)
+                   for h, w, nsrc in ((832, 1152, 4), (1024, 1920, 2))
+                   for s, (_, _, c, d, g) in enumerate(DTU_MID_STAGES)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("attn_fuse_d", [True, False])
-@pytest.mark.parametrize("shape", DTU_MID_STAGES + [(48, 64, 8, 8, 4),
-                                                    (64, 64, 16, 4, 8)])
-def test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d):
+@pytest.mark.parametrize("shape,nsrc", [(s, 4) for s in DTU_MID_STAGES + [(48, 64, 8, 8, 4),
+                                                                          (64, 64, 16, 4, 8)]]
+                         + SERVED_CASCADES)
+def test_kernel_matches_plain_on_card(cuda_device, shape, nsrc, attn_fuse_d):
     # identical coordinates in both (see core/geometry.py), so only the
     # sum order of the correlation and softmax differ
     h, w, c, d, g = shape
-    inp = stage_inputs(4, h, w, c, d, nsrc=4)
+    inp = stage_inputs(4, h, w, c, d, nsrc=nsrc)
     args = [t(inp[k], cuda_device) for k in
             ("ref", "src", "ref_proj", "src_projs", "hypo")]
     before = warp_correlate.fused_cost_volume.launches
@@ -195,11 +205,12 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d):
     (48, 64, 16, 2, 2), (48, 64, 16, 3, 2), (48, 64, 64, 16, 16), (48, 64, 16, 2, 16),
     (48, 64, 32, 3, 16), (40, 56, 64, 16, 2),
     (32, 48, 3, 3, 3), (32, 48, 3, 16, 1),  # C = 3: the scalar path
+    (64, 80, 64, 2, 2), (64, 80, 64, 3, 2), (64, 80, 64, 16, 16),  # at stage 1's size
 ])
 def test_kernel_takes_other_counts_on_card(cuda_device, shape, attn_fuse_d):
     """Depth and group counts off dtu_default: D in {2, 3, 16}, G in {2, 16}
     (every float4 split) and C = 3."""
-    test_kernel_matches_plain_on_card(cuda_device, shape, attn_fuse_d)
+    test_kernel_matches_plain_on_card(cuda_device, shape, 4, attn_fuse_d)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ from _torch_parity import jax_variables, stage_inputs, t, write_plane_scan
 from helpers import synthetic_sample
 from mvster_tpu_torch.models.mvs4net import MVS4Net, MVS4NetConfig
 from mvster_tpu_torch.tools.weights import state_dict_from_jax
-from mvster_tpu_torch.utils.debug import DebugDumper, attention_maps
+from mvster_tpu_torch.utils.debug import attention_maps
 
 NARROW = ["--fpn_base_channel", "4", "--reg_channel", "4", "--group_cor_dim", "4,4,4,4"]
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
@@ -88,22 +88,6 @@ def test_return_debug_matches_jax():
         # the debug fields are additive: the rest is the plain forward's
         assert torch.equal(got["depth"], plain[f"stage{s}"]["depth"])
         assert "debug_features" not in plain[f"stage{s}"]
-
-
-def test_debug_dumper_writes_each_stage(tmp_path):
-    sample = synthetic_sample(1, nviews=2, h=64, w=64)
-    model = MVS4Net(MVS4NetConfig(**CFG)).eval()
-    with torch.no_grad():
-        out = model(t(sample["imgs"]), {k: t(v) for k, v in sample["proj_matrices"].items()},
-                    t(sample["depth_values"]))
-    DebugDumper(str(tmp_path / "dump")).dump_stage_outputs(out, prefix="v0_")
-    DebugDumper(str(tmp_path / "off"), enabled=False).dump_stage_outputs(out)
-    names = sorted(os.listdir(tmp_path / "dump"))
-    assert names == sorted(f"v0_stage{s}_{kind}" for s in range(1, 5)
-                           for kind in ("attn_weight.npy", "hypo_depth.npy", "depth.jpg"))
-    assert not (tmp_path / "off").exists()
-    np.testing.assert_array_equal(np.load(tmp_path / "dump" / "v0_stage2_attn_weight.npy"),
-                                  out["stage2"]["attn_weight"].numpy())
 
 
 @pytest.fixture(scope="module")

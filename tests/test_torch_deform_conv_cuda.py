@@ -2,9 +2,10 @@
 
 K7 against the plain version (kernels/deform_conv.deform_conv_plain) at
 the four heads' channel counts (64, 32, 16, 8), on odd sizes whose pixel
-count leaves a ragged last tile; with offsets of many pixels that reach
-past the padded border (the clamp); on a band (row0 > 0 over a taller
-whole map) against the plain band path; the same bits from two launches;
+count leaves a ragged last tile and at the four heads of a served view;
+with offsets of many pixels that reach past the padded border (the
+clamp); on a band (row0 > 0 over a taller whole map) against the plain
+band path; the same bits from two launches;
 a DeformConvBlock under inference mode against the same block on the CPU;
 under autograd, K7's forward (also with autograd on and no input that
 wants a gradient) and its backward against the plain version's own
@@ -62,6 +63,21 @@ def test_k7_matches_plain(cuda_device, c, reach):
     torch.testing.assert_close(got, want, **TOL)
     if reach > 1:  # taps past the padded border, clamped
         assert offsets.abs().max() > 40
+
+
+# (C, H, W) of FPN4's four heads on a served --dcn view: DTU's 832x1152
+# read, strides 8 to 1, 5 images a view
+SERVED_HEADS = [(64, 104, 144), (32, 208, 288), (16, 416, 576), (8, 832, 1152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reach", [1.0, 64.0], ids=["1px", "64px"])
+@pytest.mark.parametrize("c,h,w", SERVED_HEADS)
+def test_k7_matches_plain_at_a_served_views_heads(cuda_device, c, h, w, reach):
+    # at 64 px most taps land past the padded border and are clamped
+    whole, offsets, mask, weight = _inputs(c, h, w, reach, seed=c + int(reach), b=5)
+    got = _k7(whole, offsets, mask, weight)
+    torch.testing.assert_close(got, dc.deform_conv_plain(whole, offsets, mask, weight), **TOL)
 
 
 @pytest.mark.cuda

@@ -45,14 +45,13 @@ from __future__ import annotations
 import json
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import free_port, spawn_ranks, wait_ranks
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
            fpn_base_channel=4, reg_channel=4, attn_temp=2.0)
 LOSS_KW = dict(inverse_depth=True, ot_iter=3)
@@ -64,12 +63,6 @@ TRAIN_FLAGS = ["--nviews", "3", "--batch_size", "4", "--epochs", "1", "--group_c
                "--reg_channel", "4", "--group_cor_dim", "4,4,4,4", "--ot_iter", "3",
                "--summary_freq", "1", "--seed", "3", "--device", "cpu"]
 OT_SHAPE = (GLOBAL_BATCH, 4, 8, 8)  # Sinkhorn inputs: B, D, H, W
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _batches():
@@ -319,23 +312,15 @@ def runs(tmp_path_factory):
     ot = _ot_inputs()
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
         pickle.dump({"sd": sd, "train": train, "eval": evalb, "ot": ot,
-                     "ports": [_free_port() for _ in range(3)]}, f)
+                     "ports": [free_port() for _ in range(3)]}, f)
 
     threads = max(1, torch.get_num_threads() // WORLD)
-    env = dict(os.environ, WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), TEST_THREADS=str(threads),
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(__file__)),
-                                           os.path.dirname(__file__)]))
-    procs = [subprocess.Popen([sys.executable, __file__, tmp], env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
+    procs = spawn_ranks(__file__, [tmp], WORLD, TEST_THREADS=str(threads))
     try:
         refs = {"jax": _jax_references(variables, train, evalb), "single": _port_single(sd, train),
                 "ot": _ot_losses(*ot), "sd": sd}
     finally:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        logs = wait_ranks(procs)
     ranks = []
     for r in range(WORLD):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -564,7 +549,7 @@ def test_world_size_one_is_bitwise_the_single_device_step(monkeypatch):
             monkeypatch.setenv("WORLD_SIZE", "1")
             monkeypatch.setenv("RANK", "0")
             monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-            monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+            monkeypatch.setenv("MASTER_PORT", str(free_port()))
             assert maybe_initialize_distributed("cpu") == (0, 1)
         try:
             net = DistributedDataParallel(model, broadcast_buffers=False) if grouped else model

@@ -13,6 +13,8 @@ the JAX package's operations, so none differs); the fused depth and
 the fused points at rtol 1e-5 of their distance from the origin, matched
 by pixel.  The PLY files are
 byte-equal.
+On the card (marked `cuda`, skipped without one): geometric_filter and
+fuse_scene against the CPU on the plane scene, by the same rules.
 """
 
 import numpy as np
@@ -222,3 +224,39 @@ def test_geometric_filter_on_card_matches_cpu(cuda_device):
         assert_masks_agree(got[i], want[i], edge)
     same = got[2] == want[2]
     np.testing.assert_allclose(got[1][same], want[1][same], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fuse_scene_on_card_matches_cpu(cuda_device):
+    """fuse_scene on the card against the CPU on the plane scene, every view
+    a reference: the masks equal but at edge pixels (counted), the fused
+    points bitwise where no mask differs (else matched by pixel at rtol
+    1e-5 of their distance from the origin), all on the plane."""
+    depths, intrs, extrs = plane_scene()
+    n = len(depths)
+    ids = list(range(n))
+    d, k, e = dict(enumerate(depths)), dict(enumerate(intrs)), dict(enumerate(extrs))
+    rng = np.random.default_rng(2)
+    confs = {v: rng.uniform(0.3, 1.0, (H, W)).astype(np.float32) for v in ids}
+    imgs = {v: rng.uniform(0, 1, (H, W, 3)).astype(np.float32) for v in ids}
+    pairs = [(v, [u for u in ids if u != v]) for v in ids]
+    kw = dict(conf_thresh=0.5, thres_view=2)
+    got = fusion.fuse_scene(pairs, d, confs, k, e, imgs, **kw, device=cuda_device)
+    want = fusion.fuse_scene(pairs, d, confs, k, e, imgs, **kw, device="cpu")
+    differ = 0
+    for v, srcs in pairs:
+        edge = fusion_edge_pixels(d[v], k[v], e[v], np.stack([d[u] for u in srcs]),
+                                  np.stack([k[u] for u in srcs]), np.stack([e[u] for u in srcs]))
+        for kind in ("final", "geo", "photo"):
+            differ += assert_masks_agree(got[2][v][kind], want[2][v][kind], edge, f"{v} {kind}")
+    if differ == 0:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        ours, theirs = points_by_pixel(got[0], got[2], ids), points_by_pixel(want[0], want[2], ids)
+        for v in ids:
+            both = ~np.isnan(ours[v][..., 0]) & ~np.isnan(theirs[v][..., 0])
+            gap = np.linalg.norm(ours[v][both] - theirs[v][both], axis=-1)
+            assert (gap <= 1e-5 * np.linalg.norm(theirs[v][both], axis=-1)).all(), gap.max()
+    assert len(got[0]) > n * H * W // 2
+    assert np.abs(got[0][:, 2] - 600.0).max() < 600.0 * 1e-3

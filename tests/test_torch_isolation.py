@@ -10,8 +10,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mvster_tpu_torch")
 FORBIDDEN = ("mvster_tpu", "jax", "jaxlib", "flax", "optax")
 
-# what importing every port module, exporting weights and importing
-# chip_smoke.py may load of the forbidden packages: nothing
+# what importing every port module and exporting weights may load of the
+# forbidden packages: nothing
 ALLOWED_LOADED: set[str] = set()
 
 _PROBE = r"""
@@ -23,7 +23,6 @@ for name in names:
     importlib.import_module(name)
 from mvster_tpu_torch.tools.weights import state_dict_from_jax
 state_dict_from_jax({"params": {"feature": {"out1": {"kernel": np.zeros((1, 1, 2, 2), np.float32)}}}})
-import chip_smoke
 print(" ".join(names))
 print(" ".join(sorted(m for m in sys.modules if m.split(".")[0] in %r)))
 """ % (FORBIDDEN,)
@@ -56,10 +55,9 @@ def _imports(path):
 
 
 def test_sources_import_only_the_converter_and_data_loaders():
-    """The port's sources and chip_smoke.py import nothing of the JAX
-    package: its converter and data loaders are the port's own copies."""
+    """The port's sources import nothing of the JAX package: its converter
+    and data loaders are the port's own copies."""
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
     seen = {}
     for path in files:
         for mod in _imports(path):

@@ -74,7 +74,6 @@ def test_variant_configs_construct_and_load_strictly(override):
     """The configs the port once refused now run: each constructs, and
     loads its own random_state_dict and its init_state_dict strictly."""
     config = MVS4NetConfig.dtu_default(mono=False, **override)
-    assert config.unsupported() == []
     model = MVS4Net(config)
     model.load_state_dict(random_state_dict(model, seed=0), strict=True)
     model.load_state_dict(init_state_dict(model, seed=0), strict=True)

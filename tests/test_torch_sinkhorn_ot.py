@@ -10,8 +10,7 @@ package's own tolerances for its Pallas pair (tests/test_pallas_sinkhorn.py):
 CPU, within the port: the written-out reverse sweep sinkhorn_pixels_bwd_plain
 against autograd through sinkhorn_pixels_plain, in float64 at rtol 1e-9
 (the same function, so only float64 rounding separates them).
-CUDA (marked `cuda`, skipped without a card; `chip_smoke.py` phase 12
-repeats them at the DTU-mid shapes): K4 vs plain per pixel at rtol 1e-5 /
+CUDA (marked `cuda`, skipped without a card): K4 vs plain per pixel at rtol 1e-5 /
 atol 1e-6; K5 vs plain at rtol 1e-4 with an absolute floor of 1e-4 of the
 largest |dL/dpred| (where pred underflows, dL/dpred = dlog_nu / 1e-12
 magnifies rounding); the Function's gradient vs autograd through the plain
@@ -317,7 +316,7 @@ def test_kernels_take_other_d_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 4, 5, 32, 33])
+@pytest.mark.parametrize("d", [8, 4, 5, 32, 33, 1, 2, 3, 16, 31, 64])
 def test_kernels_take_a_ragged_shape_on_card(cuda_device, d):
     """B * N = 2 * 31 * 37 is no multiple of a block's pixels: the tail
     block's idle lanes still reach every shuffle."""

@@ -38,26 +38,19 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import free_port, spawn_ranks, wait_ranks
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
            fpn_base_channel=4, reg_channel=4, attn_temp=2.0)
 H, W, VIEWS, BATCH = 128, 64, 2, 2
 STAGE_KEYS = ("attn_weight", "hypo_depth", "depth", "photometric_confidence")
 # further row-local settings, spatial 2 alone
 EXTRA = {"pos_enc_sine": dict(pos_enc=1), "bf16": dict(compute_dtype="bfloat16")}
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _sample():
@@ -168,14 +161,8 @@ def runs(tmp_path_factory):
     variables = jax_variables(JaxConfig(**CFG), sample, seed=0)
     sd = state_dict_from_jax(variables)
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
-        pickle.dump({"sd": sd, "sample": sample, "port": _free_port()}, f)
-    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()),
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(__file__)),
-                                           os.path.dirname(__file__)]))
-    procs = [subprocess.Popen([sys.executable, __file__, tmp], env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(4)]
+        pickle.dump({"sd": sd, "sample": sample, "port": free_port()}, f)
+    procs = spawn_ranks(__file__, [tmp], 4)
     try:
         with torch.no_grad():
             single = to_numpy_tree(_model(sd)(*_inputs(sample)))
@@ -183,9 +170,7 @@ def runs(tmp_path_factory):
                      for name, overrides in EXTRA.items()}
         jax_out = run_jax_model(JaxConfig(**CFG), variables, sample)
     finally:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        wait_ranks(procs)
     ranks = []
     for r in range(4):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -56,14 +56,13 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import free_port, spawn_ranks, wait_ranks
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
            fpn_base_channel=4, reg_channel=4, attn_temp=2.0, mono=True)
 H, W, VIEWS, BATCH = 128, 64, 2, 2
@@ -77,12 +76,6 @@ CASES = (("f64", torch.float64, "xla", {}), ("f32", torch.float32, "xla", {}),
          ("bf16", torch.float32, "xla", dict(compute_dtype="bfloat16")))
 SPLITS = {"2x2": (2, 2), "1x2": (1, 2)}
 PIXEL_FRACTIONS = ("thres", "s0_range", "s1_range", "s2_range", "s3_range")
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _batch():
@@ -425,21 +418,13 @@ def runs(tmp_path_factory):
     variables = jax_train_variables(JaxConfig(**CFG), batch, seed=0)
     sd = state_dict_from_jax(variables)
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
-        pickle.dump({"sd": sd, "batch": batch, "port": _free_port()}, f)
-    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()),
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(__file__)),
-                                           os.path.dirname(__file__)]))
-    procs = [subprocess.Popen([sys.executable, __file__, tmp], env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(4)]
+        pickle.dump({"sd": sd, "batch": batch, "port": free_port()}, f)
+    procs = spawn_ranks(__file__, [tmp], 4)
     try:
         single = _port_single(sd, batch)
         jax_ref = _jax_step(variables, batch)
     finally:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        wait_ranks(procs)
     ranks = []
     for r in range(4):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -36,24 +36,18 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import BAND_VARIANTS
+from _torch_parity import BAND_VARIANTS, spawn_ranks, wait_ranks
 
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
            fpn_base_channel=4, reg_channel=4, attn_temp=2.0)
 H, W, VIEWS, BATCH = 128, 64, 2, 2
 STAGE_KEYS = ("attn_weight", "hypo_depth", "depth", "photometric_confidence")
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _sample():
@@ -130,21 +124,13 @@ def runs(tmp_path_factory):
            for name, o in BAND_VARIANTS.items()}
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
         pickle.dump({"sd": sds, "sample": sample}, f)
-    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()),
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(__file__)),
-                                           os.path.dirname(__file__)]))
-    procs = [subprocess.Popen([sys.executable, __file__, tmp], env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+    procs = spawn_ranks(__file__, [tmp], 2)
     try:
         with torch.no_grad():
             single = {name: _stages(_model(sds[name], o)(*_inputs(sample)))
                       for name, o in BAND_VARIANTS.items()}
     finally:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        wait_ranks(procs)
     ranks = []
     for r in range(2):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -29,15 +29,13 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import BAND_VARIANTS
+from _torch_parity import BAND_VARIANTS, spawn_ranks, wait_ranks
 
 CFG = dict(group_cor=True, group_cor_dim=(4, 4, 4, 4), inverse_depth=True,
            fpn_base_channel=4, reg_channel=4, attn_temp=2.0, mono=True)
@@ -45,12 +43,6 @@ H, W, VIEWS, BATCH = 128, 64, 2, 2
 LOSS_KW = dict(inverse_depth=True, ot_iter=3, mono=True, l1ot_lw=(1.0, 1.0), ot_backend="xla")
 LR = 1e-3
 F64_RTOL = 1e-7
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _batch():
@@ -125,13 +117,7 @@ def runs(tmp_path_factory):
            for name, o in BAND_VARIANTS.items()}
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
         pickle.dump({"sd": sds, "batch": batch}, f)
-    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()),
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(__file__)),
-                                           os.path.dirname(__file__)]))
-    procs = [subprocess.Popen([sys.executable, __file__, tmp], env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+    procs = spawn_ranks(__file__, [tmp], 2)
     try:
         single = {}
         for name, o in BAND_VARIANTS.items():
@@ -141,9 +127,7 @@ def runs(tmp_path_factory):
             scalars, _ = step(_f64(batch))
             single[name] = _result(model, scalars)
     finally:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+        wait_ranks(procs)
     ranks = []
     for r in range(2):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -13,12 +13,13 @@ C % 4 != 0, the plan's lanes and samples per lane hold the kernels'
 assumptions, and the kernels' thread-to-sample mapping (csrc/
 warp_scatter.cu, modelled in numpy) covers every (sample, vector) exactly
 once.
-CUDA (marked `cuda`, skipped without a card; `chip_smoke.py` phase 7
-repeats them at the DTU-mid and 576x768 shapes): K2 vs warp_plain at atol
+CUDA (marked `cuda`, skipped without a card): K2 vs warp_plain at atol
 1e-6, K3 vs scatter_grad_plain at rtol 1e-4 / atol 1e-5 (atomics sum in no
-fixed order), on plane-sweep coordinates, on coordinates spread over and
-beyond the whole image, and on coordinates that all land on one 2x2 patch;
-and the Function's src.grad vs autograd through warp_plain.
+fixed order), on plane-sweep coordinates at the DTU-mid, 576x768 and
+served 832x1152 stages, on a band's coordinates into whole sources (K2
+bitwise there), on coordinates spread over and beyond the whole image,
+and on coordinates that all land on one 2x2 patch; and the Function's
+src.grad vs autograd through warp_plain.
 """
 
 import numpy as np
@@ -216,8 +217,13 @@ def _card_inputs(shape, device, seed=6):
             t(cot, device))
 
 
+# ... and of the served 832x1152 cascade, where --vis_ETA's attention
+# volumes take K2 (on the card only: the planner's cases above cover C)
+SERVED_SHAPES = [(104, 144, 64, 8), (208, 288, 32, 8), (416, 576, 16, 4), (832, 1152, 8, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("shape", CARD_SHAPES + SERVED_SHAPES)
 def test_kernels_match_plain_on_card(cuda_device, shape):
     src, x, y, cot = _card_inputs(shape, cuda_device)
     before = (warp_vjp.warp_gather.launches, warp_vjp.scatter_grad.launches)
@@ -271,6 +277,35 @@ def test_kernels_match_plain_on_odd_coordinates(cuda_device, case, shape):
     dsrc = warp_vjp.scatter_grad(cot, x, y, src.shape)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, warp_vjp.warp_plain(src, x, y), rtol=0, atol=1e-6)
+    torch.testing.assert_close(dsrc, warp_vjp.scatter_grad_plain(cot, x, y, src.shape),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, row0, rows", [
+    ((128, 160, 32, 8), 64, 64),     # DTU-mid stage 2, the second of 2 bands
+    ((512, 640, 8, 4), 256, 256),    # DTU-mid stage 4
+    ((1152, 1600, 8, 4), 576, 576),  # stage 4 at DTU's raw 1152x1600
+    ((64, 80, 64, 8), 16, 24),       # a band that is no multiple of a block
+])
+def test_kernels_on_a_band_match_plain_on_card(cuda_device, shape, row0, rows):
+    """A band's plane-sweep coordinates (reference rows row0 ..) into whole
+    sources, as make_spatial_train_step's warp takes them: K2 bitwise the
+    plain version, K3 at its tolerance."""
+    from mvster_tpu_torch.core.geometry import plane_sweep_coords
+
+    h, w, c, d = shape
+    inp = stage_inputs(8, h, w, c, d, nsrc=1, batch=2)
+    x, y = plane_sweep_coords(t(inp["src_projs"][0], cuda_device),
+                              t(inp["ref_proj"], cuda_device),
+                              t(inp["hypo"][:, :, row0:row0 + rows], cuda_device), row0)
+    src = t(inp["src"][0], cuda_device)
+    cot = t(np.random.default_rng(8).normal(size=(2, d, rows, w, c)), cuda_device)
+    got = warp_vjp.warp_gather(src, x, y)
+    dsrc = warp_vjp.scatter_grad(cot, x, y, src.shape)
+    torch.cuda.synchronize()
+    assert got.shape == (2, d, rows, w, c) and dsrc.shape == src.shape
+    assert torch.equal(got, warp_vjp.warp_plain(src, x, y))
     torch.testing.assert_close(dsrc, warp_vjp.scatter_grad_plain(cot, x, y, src.shape),
                                rtol=1e-4, atol=1e-5)
 
